@@ -1,0 +1,64 @@
+"""Carry a reference model, state and solver state across into the port.
+
+The reference (``qppvm_tpu``) keeps its robot as a pytree of arrays plus
+static metadata. These helpers take those fields as numpy arrays (the
+caller extracts them) and build the port's objects on a chosen device, so
+both packages can be fed the same robot, state, references and warm start.
+Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from qppvm_tpu_torch.model.robot import RobotModel, RobotState
+from qppvm_tpu_torch.opt.qp import QPState
+
+MODEL_ARRAYS = ("axis", "E_tree", "p_tree", "inertia", "base_inertia",
+                "q_home", "q_min", "q_max", "tau_max", "v_max", "armature",
+                "gravity")
+MODEL_META = ("parent", "joint_type", "joint_names", "link_names",
+              "root_name", "floating", "frames")
+STATE_FIELDS = ("q", "qd", "base_rot", "base_pos", "base_vel")
+QPSTATE_FIELDS = ("x", "z", "y", "Kinv", "rho_scale")
+
+
+def robot_model(arrays: Mapping[str, np.ndarray], meta: Mapping[str, Any],
+                device="cpu", dtype=torch.float32) -> RobotModel:
+    """RobotModel from the reference's array fields (``MODEL_ARRAYS``) and
+    static metadata (``MODEL_META``)."""
+    kw = dict(dtype=dtype, device=device)
+    tensors = {k: torch.tensor(np.asarray(arrays[k]), **kw)
+               for k in MODEL_ARRAYS}
+    static = {k: meta[k] for k in MODEL_META if k in meta}
+    for k in ("parent", "joint_type", "joint_names", "link_names", "frames"):
+        if k in static:
+            static[k] = tuple(static[k])
+    return RobotModel(**tensors, **static)
+
+
+def robot_state(arrays: Mapping[str, np.ndarray], device="cpu",
+                dtype=torch.float32) -> RobotState:
+    """RobotState from arrays that already carry the leading batch dim."""
+    return RobotState(**{k: torch.tensor(np.asarray(arrays[k]),
+                                            dtype=dtype, device=device)
+                         for k in STATE_FIELDS})
+
+
+def refs(tree: Mapping[str, Any], device="cpu",
+         dtype=torch.float32) -> Dict[str, Any]:
+    """Nested refs dict of numpy arrays -> the same dict of tensors."""
+    return {k: (refs(v, device, dtype) if isinstance(v, Mapping)
+                else torch.tensor(np.asarray(v), dtype=dtype, device=device))
+            for k, v in tree.items()}
+
+
+def qp_states(levels: Sequence[Mapping[str, np.ndarray]], device="cpu",
+              dtype=torch.float32) -> tuple:
+    """Per-level warm QPStates from arrays (``QPSTATE_FIELDS``, batched)."""
+    return tuple(QPState(**{k: torch.tensor(np.asarray(lv[k]), dtype=dtype,
+                                               device=device)
+                            for k in QPSTATE_FIELDS})
+                 for lv in levels)

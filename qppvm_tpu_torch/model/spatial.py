@@ -1,0 +1,88 @@
+"""Spatial (Plücker) algebra primitives (port of qppvm_tpu/model/spatial.py).
+
+Featherstone conventions, angular-first: motion vectors ``[omega; v]``,
+force vectors ``[n; f]``; a frame (E, p) has E rotating parent coordinates
+into local ones and p the frame origin in parent coordinates. Every
+function broadcasts over any leading dimensions (batch, links).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _cross(a, b):
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def skew(v):
+    """3-vector -> 3x3 skew-symmetric matrix (skew(v) @ u == v x u)."""
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([z, -v[..., 2], v[..., 1]], dim=-1),
+        torch.stack([v[..., 2], z, -v[..., 0]], dim=-1),
+        torch.stack([-v[..., 1], v[..., 0], z], dim=-1),
+    ], dim=-2)
+
+
+def xform_apply(E, p, v):
+    """Apply X (parent->child motion transform) to motion vector v."""
+    w = torch.einsum("...ij,...j->...i", E, v[..., :3])
+    lin = torch.einsum("...ij,...j->...i", E, v[..., 3:] - _cross(p, v[..., :3]))
+    return torch.cat([w, lin], dim=-1)
+
+
+def xform_force_inv_apply(E, p, f):
+    """Apply (X*)^{-1} = X^T (child->parent force transform)."""
+    lin = torch.einsum("...ji,...j->...i", E, f[..., 3:])
+    n = torch.einsum("...ji,...j->...i", E, f[..., :3]) + _cross(p, lin)
+    return torch.cat([n, lin], dim=-1)
+
+
+def cross_motion(v, m):
+    """v x m for motion vectors."""
+    w, lin = v[..., :3], v[..., 3:]
+    mw, mlin = m[..., :3], m[..., 3:]
+    return torch.cat([_cross(w, mw), _cross(lin, mw) + _cross(w, mlin)], dim=-1)
+
+
+def cross_force(v, f):
+    """v x* f for a motion vector v and force vector f."""
+    w, lin = v[..., :3], v[..., 3:]
+    fn, fl = f[..., :3], f[..., 3:]
+    return torch.cat([_cross(w, fn) + _cross(lin, fl), _cross(w, fl)], dim=-1)
+
+
+def mcI(m, c, Ic):
+    """Spatial inertia (6x6) of a body: mass m, CoM c and rotational inertia
+    Ic about the CoM, both in local coordinates."""
+    C = skew(c)
+    I3 = torch.eye(3, dtype=Ic.dtype, device=Ic.device)
+    top = torch.cat([Ic + m * (C @ C.transpose(-1, -2)), m * C], dim=-1)
+    bot = torch.cat([m * C.transpose(-1, -2), m * I3], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def so3_log(R):
+    """Rotation matrix -> rotation vector (axis * angle), safe near 0."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.arccos(cos_t)
+    w = torch.stack([
+        R[..., 2, 1] - R[..., 1, 2],
+        R[..., 0, 2] - R[..., 2, 0],
+        R[..., 1, 0] - R[..., 0, 1],
+    ], dim=-1)
+    s = torch.sin(theta)
+    small = torch.abs(s) < 1e-6
+    scale = torch.where(small, 0.5 + theta * theta / 12.0,
+                        theta / torch.where(small, torch.ones_like(s), 2.0 * s))
+    return w * scale[..., None]
+
+
+def pose_error(R_ref, p_ref, R, p):
+    """6D pose error [e_pos; e_rot] (linear-first, world frame):
+    e_pos = p_ref - p, e_rot = log(R_ref R^T)."""
+    e_pos = p_ref - p
+    e_rot = so3_log(R_ref @ R.transpose(-1, -2))
+    return torch.cat([e_pos, e_rot], dim=-1)

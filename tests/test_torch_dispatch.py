@@ -1,0 +1,120 @@
+"""The port's solver dispatch: no JAX in the package, loud fallbacks.
+
+- importing every module of qppvm_tpu_torch loads no ``jax``;
+- with backend "kernel", a level in the level solver's profile goes to
+  ``level_qp.solve_level`` (its plain version on CPU tensors, the same
+  arithmetic as qp.solve) and a level outside it runs qp.solve and adds one
+  to ``hierarchy.fallbacks``;
+- a level whose rows are all equalities is routed to qp.solve (counted),
+  and ``solve_level`` itself raises on it;
+- ``solve_level`` raises on a device that is neither CPU nor CUDA.
+"""
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from qppvm_tpu_torch.opt import hierarchy, level_qp, qp
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parents[1]
+RT = dict(iters=12, rho_updates=0, polish_rounds=0, assume_warm_kinv=True,
+          warm_kinv_iters=4, cold_ns_iters=10, scale_iters=2, pinv_ns_iters=5,
+          rho_adapt_tol=1e-3, rho_scale_min=0.1)
+
+
+def test_package_imports_no_jax():
+    code = ("import importlib, pkgutil, sys, qppvm_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, 'qppvm_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'qppvm_tpu'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _stack(B=3, n=8, n_eq=2, n_ineq=3, level_rows=(2, 3), seed=0):
+    """A random two-level stack: ``n_eq`` equality rows then ``n_ineq``
+    bounded rows in C, no box."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    mc = n_eq + n_ineq
+    C = rng.normal(size=(B, mc, n))
+    lC = np.concatenate([np.zeros((B, n_eq)), -np.ones((B, n_ineq))], 1)
+    uC = np.concatenate([np.zeros((B, n_eq)), np.ones((B, n_ineq))], 1)
+    levels = tuple(hierarchy.LevelData(A=t(rng.normal(size=(B, k, n))),
+                                       b=t(rng.normal(size=(B, k))))
+                   for k in level_rows)
+    return hierarchy.StackData(levels=levels, C=t(C), lC=t(lC), uC=t(uC),
+                               lb=t(np.full((B, n), -1e20)),
+                               ub=t(np.full((B, n), 1e20)), n_eq=n_eq,
+                               has_box=False)
+
+
+def test_kernel_backend_routes_and_counts_fallbacks():
+    stack = _stack()
+    warm = hierarchy.warm_start_init(stack)
+    hierarchy.fallbacks = 0
+    x_ref, warm_ref, _ = hierarchy.solve(stack, warm, backend="torch", **RT)
+    assert hierarchy.fallbacks == 0
+    # in profile: both levels go to the level solver, nothing counted, and
+    # on CPU it is exactly qp.solve's arithmetic
+    x, warm_k, infos = hierarchy.solve(stack, warm, backend="kernel", **RT)
+    assert hierarchy.fallbacks == 0
+    assert torch.equal(x, x_ref)
+    assert all(torch.equal(a.Kinv, b.Kinv) for a, b in zip(warm_k, warm_ref))
+    # outside the profile (a polished solve; no warm state): one per level
+    hierarchy.solve(stack, warm, backend="kernel", **dict(RT, polish_rounds=2))
+    assert hierarchy.fallbacks == 2
+    hierarchy.solve(stack, None, backend="kernel", **RT)
+    assert hierarchy.fallbacks == 4
+    with pytest.raises(ValueError):
+        hierarchy.solve(stack, warm, backend="pallas", **RT)
+
+
+def test_all_equality_level_is_routed_and_rejected_by_the_kernel():
+    """Level 0 of a stack whose C rows are all equalities has no inequality
+    row: the hierarchy routes it to qp.solve and counts it; level 1 (with
+    the level-0 locks as tail equalities) is likewise all-equality."""
+    stack = _stack(n_eq=3, n_ineq=0, level_rows=(2, 2))
+    warm = hierarchy.warm_start_init(stack)
+    hierarchy.fallbacks = 0
+    x, _, infos = hierarchy.solve(stack, warm, backend="kernel", **RT)
+    assert hierarchy.fallbacks == 2
+    eq_res = (stack.C @ x[..., None])[..., 0] - stack.lC
+    assert float(eq_res.abs().max()) < 1e-4
+    cfg = level_qp.config_from_opts(RT, n_eq_head=3, n_eq_tail=0, iters=12)
+    P = torch.eye(8).expand(3, 8, 8).contiguous()
+    z3 = torch.zeros(3, 3)
+    with pytest.raises(ValueError, match="inequality"):
+        level_qp.solve_level(cfg, P, torch.zeros(3, 8), stack.C, z3, z3,
+                             torch.zeros(3, 8), z3, z3, torch.zeros(3, 8, 8),
+                             torch.ones(3))
+
+
+def test_solve_level_raises_off_cpu_and_cuda():
+    cfg = level_qp.config_from_opts(RT, n_eq_head=0, n_eq_tail=0, iters=12)
+    B, n, m = 2, 4, 3
+    args = [torch.empty(s, device="meta") for s in
+            ((B, n, n), (B, n), (B, m, n), (B, m), (B, m), (B, n), (B, m),
+             (B, m), (B, n, n), (B,))]
+    with pytest.raises(ValueError, match="device"):
+        level_qp.solve_level(cfg, *args)
+
+
+def test_config_from_opts_scope():
+    """The level solver's profile: rho_updates 0, no polish, warm KKT
+    inverse, Newton-Schulz; anything else maps to None."""
+    ok = level_qp.config_from_opts(RT, n_eq_head=6, n_eq_tail=6, iters=12)
+    assert ok == level_qp.LevelQPConfig(n_eq_head=6, n_eq_tail=6,
+                                        cold_ns_iters=10)
+    for bad in (dict(rho_updates=1), dict(polish_rounds=2),
+                dict(assume_warm_kinv=False), dict(inv_method="chol")):
+        assert level_qp.config_from_opts(dict(RT, **bad), n_eq_head=0,
+                                         n_eq_tail=0, iters=12) is None
+    assert qp.QPState.zero(2, 3, 4).Kinv.shape == (2, 3, 3)
