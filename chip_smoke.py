@@ -3,28 +3,51 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-1. build the level-QP kernel from csrc/level_qp.cu and print the card;
-2. hold the kernel against its plain PyTorch version on WBC-shaped random
-   problems at the humanoid tick's level shapes, B = 1024, cold then warm,
-   to the tolerances of tests/test_pallas_qp.py (rho_scale as
-   qppvm_tpu_torch/opt/level_qp_parity.py says), and time both;
+1. build both kernels (csrc/level_qp.cu, csrc/ns_inverse.cu; one nvcc each,
+   started together) and print the card;
+2. hold the level-QP kernel against its plain PyTorch version on WBC-shaped
+   random problems at the humanoid tick's level shapes, B = 1024, cold then
+   warm, to the tolerances of tests/test_pallas_qp.py (rho_scale as
+   qppvm_tpu_torch/opt/level_qp_parity.py says), and time both; then the
+   same at the MPC rollout's profile (no z clip, no cold budget, 8 warm NS
+   iterations, rho carried) at B = 512, cold then two warm solves;
 3. drive the main path: ForceAccPlugin on the humanoid with bench.py's RT
    profile, on_start, then 5 chained batched ticks at B = 1024 (q perturbed
    by 0.01 N(0, 1)); gate on zero solver failures and finite torques,
    require 2 kernel launches and 0 fallbacks per tick, compare tau with the
    same chain run through the plain level solver (backend "torch"), and
-   time the tick with either.
+   time the tick with either;
+4. drive the NS-inverse path (ns_inverse, bench_pallas.py's B 1024, n 64,
+   26 iterations on K = M M^T + 0.5 I) and the simulator's shape (the
+   humanoid's regularized mass matrix, 24 iterations, B 1 and 1024); hold
+   the kernel to its plain version (atol 2e-4, rtol 2e-3) and to
+   max |K X - I| < 5e-3; time kernel, plain version and torch.linalg.inv;
+5. the closed loop (runtime/rt_loop.py): 500 ticks of the humanoid's RT
+   tick against the contact plant, gated on zero solver failures and a
+   stand within 0.08 m; ms per tick, sim-only ms per tick and their
+   difference; then 100 ticks through the level kernel at B = 1, its first
+   5 torques held to the plain loop's, 2 launches per tick;
+6. one sampling-MPC plan step (mpc/humanoid_plan.py: 512 samples, horizon
+   8, rollouts through the level kernel): one untimed plan, 3 timed ones;
+   2 x horizon launches per plan, 0 fallbacks, solver_fail_frac 0, finite
+   cost; then 3 more draws, each rolled out through the kernel and through
+   the plain level solver on the same samples, must agree sample by sample
+   (each rollout's cost, the failure flags) and in the MPPI plan U_new.
+   Prints QP solves/s.
 
-Prints a JSON line describing the kernel, then, as the last line,
-{"ok": true, "device": {...}}. Exits non-zero without that line when there
-is no CUDA device or any phase fails.
+Prints the card's name and power limit, a JSON line describing the kernels,
+then, as the last line, {"ok": true, "device": {...}}. Exits non-zero
+without that line when there is no CUDA device or any phase fails.
 """
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 B = 1024
@@ -40,6 +63,23 @@ BACKENDS = ("kernel", "torch")   # level solver: CUDA kernel, plain qp.solve
 # tau of the kernel chain vs the plain chain: float32 sums in another order
 # through 5 chained 12-iteration solves; a wrong row moves tau by O(1) Nm
 TAU_ATOL, TAU_RTOL = 5e-3, 1e-3
+# the MPC rollout's level profile (mpc/rollout.py with bench_mpc.py's
+# qp_iters 12 and 8 warm NS iterations): no z clip, no cold NS budget
+ROLLOUT_LEVEL = dict(warm_kinv_iters=8, cold_ns_iters=None, z_clip=False,
+                     scale_iters=2, pinv_ns_iters=5)
+# each rollout's cost and the MPPI plan U_new, level kernel vs plain level
+# solver on the same samples, over MPC_DRAWS draws: float32 sums in another
+# order through 8 chained steps (the gaps this phase prints on an H100 are
+# in PERF.md); a wrong level solve moves a cost by whole units
+MPC_COST_ATOL, MPC_COST_RTOL, MPC_U_ATOL = 1e-3, 1e-3, 1e-5
+# NS inverse: bench_pallas.py's shape and tests/test_pallas_linalg.py's bars
+NS_B, NS_N, NS_ITERS = 1024, 64, 26
+NS_ATOL, NS_RTOL, NS_RESID = 2e-4, 2e-3, 5e-3
+LOOP_TICKS, KERNEL_LOOP_TICKS, LOOP_COMPARE = 500, 100, 5
+MPC_REPS = 3
+MPC_DRAWS = 3
+# one H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 
 
 def fail(msg):
@@ -75,6 +115,36 @@ def tick_times_ms(torch, plugin, states, refs, warm, reps=REPS):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return times
+
+
+def bound_ms(flops, nbytes):
+    """The least time for the work on one H100 and what bounds it."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def level_qp_cost(cfg, B, n, m):
+    """(flops, bytes) of one level-kernel launch, counted from the shapes
+    with every item on the warm branch of the NS guard (the least work):
+    the equality Gram inverse and pseudo-inverse refinement, the projected
+    KKT matrix, the guard product, the warm NS iterations, the ADMM
+    iterations and the final residuals; each input read once, each output
+    written once."""
+    ne = cfg.n_eq_head + cfg.n_eq_tail
+    mi = m - ne
+    elim = 0
+    if ne:
+        from qppvm_tpu_torch.opt.level_qp import GRAM_NS_ITERS
+        elim = (2 * ne * ne * n + 4 * GRAM_NS_ITERS * ne ** 3
+                + 2 * n * ne * ne + 4 * cfg.pinv_ns_iters * n * ne * ne
+                + 2 * n * n * ne + 4 * n ** 3)
+    flops = (elim + 2 * n * n * mi + 2 * n ** 3
+             + 4 * cfg.warm_kinv_iters * n ** 3
+             + cfg.iters * (4 * n * n + 4 * mi * n)
+             + 6 * n * n + 6 * mi * n + 4 * m * n)
+    words = (2 * n * n + m * n + 3 * n + 4 * m + 1) + (n * n + n + 2 * m + 4)
+    return B * flops, 4 * B * words
 
 
 def import_port():
@@ -120,13 +190,220 @@ def main_path_inputs(torch, dev):
     return plugins, states, refs_b, warm_b
 
 
+def check_level_phase(torch, parity, level_qp, cfg, prob, state, label,
+                      phases=("cold", "warm")):
+    """Kernel vs plain version from ``state``, each phase warm-started from
+    the kernel's own output state. Returns (max abs error, last state)."""
+    max_err = 0.0
+    for phase in phases:
+        out = level_qp.solve_level(cfg, *prob, *state)
+        torch.cuda.synchronize()
+        try:
+            errs = parity.check_level_outputs(cfg, prob, state, out)
+        except AssertionError as e:
+            fail(f"{label} {phase}: {e}")
+        print(f"kernel vs plain {label} {phase}: max abs "
+              + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
+        max_err = max(max_err, max(errs.values()))
+        state = out[:5]   # warm: the kernel's own state, rho_scale too
+    return max_err, state
+
+
+def phase_ns_inverse(torch, dev, card):
+    """Phase 4: the NS-inverse path and the kernel against its plain
+    version at the bench shape and at the simulator's shape."""
+    from qppvm_tpu_torch.model import dynamics, zoo
+    from qppvm_tpu_torch.mpc.rollout import standing_state
+    from qppvm_tpu_torch.opt import ns_inverse as nsi
+
+    M = torch.tensor(np.random.default_rng(0).standard_normal(
+        (NS_B, NS_N, NS_N), dtype=np.float32), device=dev)
+    K = M @ M.transpose(1, 2) + 0.5 * torch.eye(NS_N, device=dev)
+    nsi.launches = 0
+    X = nsi.ns_inverse(K, NS_ITERS)      # the path, as a caller drives it
+    torch.cuda.synchronize()
+    launches = nsi.launches
+    if launches != 1:
+        fail(f"ns_inverse path: {launches} kernel launches, expected 1")
+
+    model = zoo.humanoid(device=dev)
+    st = standing_state(model, CONTACTS, batch=NS_B)
+    g = torch.Generator(device=dev).manual_seed(1)
+    st = type(st)(q=st.q + 0.01 * torch.randn(st.q.shape, generator=g,
+                                               device=dev),
+                  **{f: getattr(st, f)
+                     for f in ("qd", "base_rot", "base_pos", "base_vel")})
+    Bm = dynamics.mass_matrix(model, st)
+    Breg = Bm + 1e-9 * torch.eye(model.nv, device=dev)
+    cases = {f"bench B={NS_B} n={NS_N} iters={NS_ITERS}": (K, NS_ITERS, X),
+             f"sim B=1 n={model.nv} iters=24": (Breg[:1].contiguous(), 24,
+                                                None),
+             f"sim B={NS_B} n={model.nv} iters=24": (Breg, 24, None)}
+    max_err, times = 0.0, {}
+    for label, (Kc, iters, Xc) in cases.items():
+        Xc = nsi.ns_inverse(Kc, iters) if Xc is None else Xc
+        torch.cuda.synchronize()
+        ref = nsi.ns_inverse_reference(Kc, iters)
+        err = float((Xc - ref).abs().max())
+        n = Kc.shape[-1]
+        resid = float((Kc @ Xc - torch.eye(n, device=dev)).abs().max())
+        print(f"ns_inverse kernel vs plain {label}: max abs {err:.3g}, "
+              f"max |K X - I| {resid:.3g}")
+        if not bool(torch.all((Xc - ref).abs()
+                              <= NS_ATOL + NS_RTOL * ref.abs())):
+            fail(f"ns_inverse {label}: kernel differs from the plain "
+                 f"version by {err:.3g}")
+        if not resid < NS_RESID:
+            fail(f"ns_inverse {label}: max |K X - I| = {resid:.3g}")
+        max_err = max(max_err, err) if label.startswith("bench") else max_err
+        run_k = lambda: nsi.ns_inverse(Kc, iters)  # noqa: E731
+        run_p = lambda: nsi.ns_inverse_reference(Kc, iters)  # noqa: E731
+        p1, k1, k2, p2 = (cuda_time_ms(torch, f)
+                          for f in (run_p, run_k, run_k, run_p))
+        lib = cuda_time_ms(torch, lambda: torch.linalg.inv(Kc))
+        times[label] = ((k1 + k2) / 2, (p1 + p2) / 2, lib)
+        print(f"[{card}] ns_inverse {label}: kernel {times[label][0]:.4f} "
+              f"ms, plain PyTorch {times[label][1]:.4f} ms, torch.linalg.inv "
+              f"{lib:.4f} ms")
+    k_ms, p_ms, lib_ms = times[f"bench B={NS_B} n={NS_N} iters={NS_ITERS}"]
+    b_ms, b_by = bound_ms(4 * NS_B * NS_ITERS * NS_N ** 3,
+                          2 * NS_B * NS_N * NS_N * 4)
+    return {"name": "ns_inverse", "route": "cuda",
+            "source": "qppvm_tpu_torch/csrc/ns_inverse.cu",
+            "replaces": "qppvm_tpu/opt/pallas_linalg.py:32",
+            "launches": launches, "max_abs_err": max_err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
+
+
+def phase_closed_loop(torch, dev, card, hierarchy, level_qp):
+    """Phase 5: the closed loop with the plain level solver, gated and
+    timed, then through the level kernel at B = 1."""
+    from qppvm_tpu_torch.runtime import rt_loop
+
+    loop = rt_loop.humanoid_loop("torch", device=dev)
+    loop.run(3)                             # warm-up, untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = loop.run(LOOP_TICKS, record=LOOP_COMPARE)
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) / LOOP_TICKS * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.run_sim(LOOP_TICKS)
+    torch.cuda.synchronize()
+    sim_ms = (time.perf_counter() - t0) / LOOP_TICKS * 1e3
+    try:
+        health = loop.check_health(res)
+    except RuntimeError as e:
+        fail(f"closed loop: {e}")
+    print(f"closed loop: {LOOP_TICKS} ticks, {health}")
+    print(f"[{card}] closed loop B=1 (plain level solver): {tick_ms:.3f} ms "
+          f"per tick, sim only {sim_ms:.3f} ms per tick, control "
+          f"{tick_ms - sim_ms:.3f} ms per tick")
+
+    loop_k = rt_loop.humanoid_loop("kernel", device=dev)
+    loop_k.run(1)                           # warm-up, untimed
+    torch.cuda.synchronize()
+    level_qp.launches = 0
+    hierarchy.fallbacks = 0
+    t0 = time.perf_counter()
+    res_k = loop_k.run(KERNEL_LOOP_TICKS, record=LOOP_COMPARE)
+    torch.cuda.synchronize()
+    tick_k_ms = (time.perf_counter() - t0) / KERNEL_LOOP_TICKS * 1e3
+    launches, fallbacks = level_qp.launches, hierarchy.fallbacks
+    if launches != 2 * KERNEL_LOOP_TICKS or fallbacks != 0:
+        fail(f"kernel loop: {launches} launches and {fallbacks} fallbacks, "
+             f"expected {2 * KERNEL_LOOP_TICKS} and 0")
+    try:
+        health_k = loop_k.check_health(res_k)
+    except RuntimeError as e:
+        fail(f"kernel loop: {e}")
+    tau_err = 0.0
+    for k, (a, r) in enumerate(zip(res_k.taus, res.taus)):
+        tau_err = max(tau_err, float((a - r).abs().max()))
+        if not torch.all((a - r).abs() <= TAU_ATOL + TAU_RTOL * r.abs()):
+            fail(f"kernel loop tick {k}: tau differs from the plain loop by "
+                 f"{float((a - r).abs().max()):.3g} Nm")
+    print(f"closed loop through the level kernel: {KERNEL_LOOP_TICKS} ticks, "
+          f"{launches} launches, {health_k}; first {LOOP_COMPARE} taus within "
+          f"{tau_err:.3g} Nm of the plain loop")
+    print(f"[{card}] closed loop B=1 (level kernel): {tick_k_ms:.3f} ms per "
+          f"tick")
+    return launches
+
+
+def phase_mpc(torch, dev, card, hierarchy, level_qp):
+    """Phase 6: the sampling-MPC plan step through the level kernel."""
+    from qppvm_tpu_torch.mpc.humanoid_plan import (HORIZON, N_SAMPLES,
+                                                   humanoid_plan)
+
+    hp = humanoid_plan("kernel", device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    level_qp.launches = 0
+    hierarchy.fallbacks = 0
+    U, info0 = hp.plan(g, hp.mpc.init_plan())      # untimed
+    torch.cuda.synchronize()
+    if level_qp.launches != 2 * HORIZON or hierarchy.fallbacks != 0:
+        fail(f"MPC plan: {level_qp.launches} launches, "
+             f"{hierarchy.fallbacks} fallbacks, expected {2 * HORIZON}, 0")
+    level_qp.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(MPC_REPS):
+        U, info = hp.plan(g, U)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) / MPC_REPS * 1e3
+    launches, fallbacks = level_qp.launches, hierarchy.fallbacks
+    if launches != 2 * HORIZON * MPC_REPS or fallbacks != 0:
+        fail(f"MPC plans: {launches} launches and {fallbacks} fallbacks, "
+             f"expected {2 * HORIZON * MPC_REPS} and 0")
+    for tag, inf in (("untimed", info0), ("timed", info)):
+        ff, cm = float(inf["solver_fail_frac"]), float(inf["cost_mean"])
+        if ff != 0.0 or not np.isfinite(cm):
+            fail(f"MPC {tag} plan: solver_fail_frac {ff}, cost_mean {cm}")
+    print(f"MPC plan: {N_SAMPLES} samples x {HORIZON} steps, {launches} "
+          f"launches over {MPC_REPS} plans, 0 fallbacks, solver_fail_frac "
+          f"0.0, cost_mean {float(info['cost_mean']):.6g}, prim_res_max "
+          f"{float(info['prim_res_max']):.3g}, ess {float(info['ess']):.1f}")
+    print(f"[{card}] MPC plan step: {plan_ms:.3f} ms, "
+          f"{N_SAMPLES * HORIZON / plan_ms * 1e3:.1f} QP solves/s")
+
+    hp_t = humanoid_plan("torch", device=dev)
+    for d in range(MPC_DRAWS):
+        U_s, scen = hp.mpc.sample(g, U)
+        U, inf_k = hp.update(U_s, scen)
+        U_t, inf_t = hp_t.update(U_s, scen)
+        if not torch.equal(inf_k["solver_failed"], inf_t["solver_failed"]):
+            fail(f"MPC draw {d}: solver_failed flags differ between the "
+                 f"level kernel and the plain level solver")
+        ck, ct = inf_k["costs"], inf_t["costs"]
+        gap = (ck - ct).abs()
+        bar = MPC_COST_ATOL + MPC_COST_RTOL * ct.abs()
+        worst = int(torch.argmax(gap / bar))
+        u_err = float((U - U_t).abs().max())
+        print(f"MPC draw {d} on the same samples, level kernel vs plain "
+              f"level solver: cost max abs diff {float(gap.max()):.3g}, max "
+              f"rel diff {float((gap / ct.abs()).max()):.3g} (costs "
+              f"{float(ct.min()):.4g} to {float(ct.max()):.4g}; atol "
+              f"{MPC_COST_ATOL}, rtol {MPC_COST_RTOL}), U_new max abs diff "
+              f"{u_err:.3g} (atol {MPC_U_ATOL}), solver_failed flags equal")
+        if not torch.all(gap <= bar):
+            fail(f"MPC draw {d}: sample {worst} costs {float(ck[worst])} "
+                 f"(kernel) vs {float(ct[worst])} (plain)")
+        if not u_err <= MPC_U_ATOL:
+            fail(f"MPC draw {d}: U_new differs from the plain plan's by "
+                 f"{u_err:.3g}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; nothing run")
     import_port()
     from qppvm_tpu_torch import build
-    from qppvm_tpu_torch.opt import hierarchy, level_qp
+    from qppvm_tpu_torch.opt import hierarchy, level_qp, ns_inverse
+    from qppvm_tpu_torch.mpc.humanoid_plan import N_SAMPLES
     from qppvm_tpu_torch.opt import level_qp_parity as parity
 
     dev = torch.device("cuda", 0)
@@ -136,42 +413,50 @@ def main():
 
     # ---- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    level_qp.library()
-    print(f"build: level_qp.cu built and loaded in "
+    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, together
+        for f in [pool.submit(m.library) for m in (level_qp, ns_inverse)]:
+            f.result()
+    print(f"build: level_qp.cu and ns_inverse.cu built and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
-    log = build.library_path("level_qp").with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip())
+    for name in ("level_qp", "ns_inverse"):
+        log = build.library_path(name).with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip())
     print(card)
 
-    # ---- 2. kernel vs plain version ----------------------------------------
-    max_err, level_ms = 0.0, []
+    # ---- 2. level kernel vs plain version ----------------------------------
+    max_err, level_ms, level_bound = 0.0, [], []
     for i, (n, m, h, t) in enumerate(LEVEL_SHAPES):
         cfg = level_qp.LevelQPConfig(n_eq_head=h, n_eq_tail=t,
                                      cold_ns_iters=10)
         prob = parity.random_problems(B, n, m, h, t, dev, seed=i)
-        state = parity.zero_state(B, n, m, dev)
-        for phase in ("cold", "warm"):
-            out = level_qp.solve_level(cfg, *prob, *state)
-            torch.cuda.synchronize()
-            try:
-                errs = parity.check_level_outputs(cfg, prob, state, out)
-            except AssertionError as e:
-                fail(f"n={n} m={m} h={h} t={t} {phase}: {e}")
-            print(f"kernel vs plain n={n} m={m} h={h} t={t} {phase}: max abs "
-                  + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
-            if (n, m, h, t) in MAIN_SHAPES:
-                max_err = max(max_err, max(errs.values()))
-            state = out[:5]   # warm: the kernel's own state, rho_scale too
+        err, state = check_level_phase(
+            torch, parity, level_qp, cfg, prob,
+            parity.zero_state(B, n, m, dev), f"n={n} m={m} h={h} t={t}")
         if (n, m, h, t) in MAIN_SHAPES:
+            max_err = max(max_err, err)
             run_k = lambda: level_qp.solve_level(cfg, *prob, *state)  # noqa
-            run_p = lambda: level_qp.solve_level_reference(cfg, *prob, *state)  # noqa
+            run_p = lambda: level_qp.solve_level_reference(  # noqa: E731
+                cfg, *prob, *state)
             p1, k1, k2, p2 = (cuda_time_ms(torch, f)
                               for f in (run_p, run_k, run_k, run_p))
             k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
             level_ms.append((k_ms, p_ms))
+            level_bound.append(level_qp_cost(cfg, B, n, m))
+            b_ms, b_by = bound_ms(*level_bound[-1])
             print(f"[{card}] level n={n} m={m} h={h} t={t} B={B}: "
-                  f"kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms")
+                  f"kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by})")
+    for i, (n, m, h, t) in enumerate(MAIN_SHAPES):
+        cfg = level_qp.LevelQPConfig(n_eq_head=h, n_eq_tail=t,
+                                     **ROLLOUT_LEVEL)
+        prob = parity.random_problems(N_SAMPLES, n, m, h, t, dev, seed=10 + i)
+        err, _ = check_level_phase(
+            torch, parity, level_qp, cfg, prob,
+            parity.zero_state(N_SAMPLES, n, m, dev),
+            f"rollout profile B={N_SAMPLES} n={n} m={m} h={h} t={t}",
+            phases=("cold", "warm", "warm 2"))
+        max_err = max(max_err, err)
 
     # ---- 3. main path -------------------------------------------------------
     plugins, states, refs_b, warm_b = main_path_inputs(torch, dev)
@@ -217,13 +502,29 @@ def main():
               f"{statistics.median(times):.3f} ms over {REPS} reps "
               f"(min {min(times):.3f}, max {max(times):.3f})")
 
+    # ---- 4. NS-inverse path ------------------------------------------------
+    ns_row = phase_ns_inverse(torch, dev, card)
+
+    # ---- 5. closed loop ----------------------------------------------------
+    loop_launches = phase_closed_loop(torch, dev, card, hierarchy, level_qp)
+
+    # ---- 6. MPC plan -------------------------------------------------------
+    mpc_launches = phase_mpc(torch, dev, card, hierarchy, level_qp)
+
+    b_ms, b_by = bound_ms(sum(f for f, _ in level_bound),
+                          sum(b for _, b in level_bound))
+    print(card)
     print(json.dumps({"kernels": [{
         "name": "level_qp", "route": "cuda",
         "source": "qppvm_tpu_torch/csrc/level_qp.cu",
         "replaces": "qppvm_tpu/opt/pallas_qp.py:257",
         "launches": launches, "max_abs_err": max_err,
         "ms": sum(k for k, _ in level_ms),
-        "plain_ms": sum(p for _, p in level_ms)}]}))
+        "plain_ms": sum(p for _, p in level_ms),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "launches_by_path": {"batched_tick": launches,
+                             "closed_loop_b1": loop_launches,
+                             "mpc_plans": mpc_launches}}, ns_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

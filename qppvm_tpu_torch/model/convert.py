@@ -13,6 +13,7 @@ from typing import Any, Dict, Mapping, Sequence
 import numpy as np
 import torch
 
+from qppvm_tpu_torch import device as devices
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
 from qppvm_tpu_torch.opt.qp import QPState
 
@@ -26,10 +27,10 @@ QPSTATE_FIELDS = ("x", "z", "y", "Kinv", "rho_scale")
 
 
 def robot_model(arrays: Mapping[str, np.ndarray], meta: Mapping[str, Any],
-                device="cpu", dtype=torch.float32) -> RobotModel:
+                device=devices.DEFAULT, dtype=torch.float32) -> RobotModel:
     """RobotModel from the reference's array fields (``MODEL_ARRAYS``) and
     static metadata (``MODEL_META``)."""
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=devices.resolve(device))
     tensors = {k: torch.tensor(np.asarray(arrays[k]), **kw)
                for k in MODEL_ARRAYS}
     static = {k: meta[k] for k in MODEL_META if k in meta}
@@ -39,25 +40,28 @@ def robot_model(arrays: Mapping[str, np.ndarray], meta: Mapping[str, Any],
     return RobotModel(**tensors, **static)
 
 
-def robot_state(arrays: Mapping[str, np.ndarray], device="cpu",
+def robot_state(arrays: Mapping[str, np.ndarray], device=devices.DEFAULT,
                 dtype=torch.float32) -> RobotState:
     """RobotState from arrays that already carry the leading batch dim."""
+    device = devices.resolve(device)
     return RobotState(**{k: torch.tensor(np.asarray(arrays[k]),
                                             dtype=dtype, device=device)
                          for k in STATE_FIELDS})
 
 
-def refs(tree: Mapping[str, Any], device="cpu",
+def refs(tree: Mapping[str, Any], device=devices.DEFAULT,
          dtype=torch.float32) -> Dict[str, Any]:
     """Nested refs dict of numpy arrays -> the same dict of tensors."""
+    device = devices.resolve(device)
     return {k: (refs(v, device, dtype) if isinstance(v, Mapping)
                 else torch.tensor(np.asarray(v), dtype=dtype, device=device))
             for k, v in tree.items()}
 
 
-def qp_states(levels: Sequence[Mapping[str, np.ndarray]], device="cpu",
-              dtype=torch.float32) -> tuple:
+def qp_states(levels: Sequence[Mapping[str, np.ndarray]],
+              device=devices.DEFAULT, dtype=torch.float32) -> tuple:
     """Per-level warm QPStates from arrays (``QPSTATE_FIELDS``, batched)."""
+    device = devices.resolve(device)
     return tuple(QPState(**{k: torch.tensor(np.asarray(lv[k]), dtype=dtype,
                                                device=device)
                             for k in QPSTATE_FIELDS})

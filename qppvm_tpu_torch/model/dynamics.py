@@ -13,6 +13,7 @@ import torch
 
 from qppvm_tpu_torch.model import kinematics, spatial
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
+from qppvm_tpu_torch.opt import linalg
 
 
 def _base_gravity_acc(model: RobotModel, state: RobotState):
@@ -23,9 +24,11 @@ def _base_gravity_acc(model: RobotModel, state: RobotState):
 
 
 def rnea(model: RobotModel, state: RobotState, udot, gravity: bool = True,
-         kin: Optional[kinematics.KinData] = None):
+         kin: Optional[kinematics.KinData] = None, ext_wrenches=None):
     """Recursive Newton-Euler: generalized forces (B, nv) for motion
-    ``udot`` (B, nv). With udot = 0 this is h(q, qd)."""
+    ``udot`` (B, nv). With udot = 0 this is h(q, qd). ``ext_wrenches``:
+    optional (B, nj, 6) external wrenches at each link origin, world frame,
+    linear-first."""
     dtype = state.q.dtype
     udot = udot.to(dtype)
     B = state.q.shape[0]
@@ -41,9 +44,16 @@ def rnea(model: RobotModel, state: RobotState, udot, gravity: bool = True,
     E_loc, p_loc = kinematics.joint_local_all(model, state.q)
     v, a = kinematics.propagate_va(model, state.qd, qdd, v_base, a_base,
                                    E_loc, p_loc)
+    # inertia (nj, 6, 6), or (B, nj, 6, 6) for a per-item scaled model
     inertia = model.inertia.to(dtype)
-    Iv = torch.einsum("nij,bnj->bni", inertia, v)
-    f = torch.einsum("nij,bnj->bni", inertia, a) + spatial.cross_force(v, Iv)
+    Iv = (inertia @ v[..., None])[..., 0]
+    f = (inertia @ a[..., None])[..., 0] + spatial.cross_force(v, Iv)
+    if ext_wrenches is not None:
+        if kin is None:
+            kin = kinematics.fk(model, state)
+        n_b = torch.einsum("bnji,bnj->bni", kin.R, ext_wrenches[..., 3:])
+        f_b = torch.einsum("bnji,bnj->bni", kin.R, ext_wrenches[..., :3])
+        f = f - torch.cat([n_b, f_b], dim=-1)
 
     # backward sweep, level-reversed: children are strictly deeper, so by the
     # time a level is processed all its descendants have been accumulated.
@@ -52,8 +62,8 @@ def rnea(model: RobotModel, state: RobotState, udot, gravity: bool = True,
     S = kinematics.motion_subspace_all(model, dtype)
     tau = torch.zeros((B, model.nj), dtype=dtype, device=state.q.device)
     Ib = model.base_inertia.to(dtype)
-    f_base = (torch.einsum("ij,bj->bi", Ib, a_base)
-              + spatial.cross_force(v_base, torch.einsum("ij,bj->bi", Ib, v_base)))
+    f_base = ((Ib @ a_base[..., None])[..., 0]
+              + spatial.cross_force(v_base, (Ib @ v_base[..., None])[..., 0]))
     for idx, parc, root in reversed(kinematics.device_levels(model)):
         fi = f[:, idx]
         tau = tau.index_copy(1, idx, torch.einsum("ni,bni->bn", S[idx], fi))
@@ -103,6 +113,60 @@ def mass_matrix(model: RobotModel, state: RobotState,
     off = 6 if model.floating else 0
     arm = torch.nn.functional.pad(model.armature.to(M.dtype), (off, 0))
     return M + torch.diag_embed(arm)
+
+
+def forward_dynamics(model: RobotModel, state: RobotState, tau,
+                     ext_wrenches=None,
+                     kin: Optional[kinematics.KinData] = None,
+                     method: str = "ns", B=None, binv=None):
+    """udot = B^{-1} (S^T tau + tau_ext - h), (B, nv); ``tau`` (B, nj)
+    actuated torques, ``ext_wrenches`` as for ``rnea``.
+
+    ``method="ns"``: the Newton-Schulz inverse of B + 1e-9 I (22 + 2
+    iterations, plain PyTorch, as the reference leaves it to XLA) applied
+    with two refinement steps against that matrix; ``"chol"``: an exact
+    Cholesky solve. ``B``: the mass matrix at ``state`` when the caller has
+    it; ``binv``: an approximate inverse of it (a warm inverse carried along
+    a rollout), which replaces the cold NS inversion."""
+    if kin is None:
+        kin = kinematics.fk(model, state)
+    zero = torch.zeros((state.q.shape[0], model.nv), dtype=state.q.dtype,
+                       device=state.q.device)
+    h = rnea(model, state, zero, gravity=True, kin=kin,
+             ext_wrenches=ext_wrenches)
+    if B is None:
+        B = mass_matrix(model, state, kin=kin)
+    tau = tau.to(state.q.dtype)
+    tau_gen = (torch.cat([torch.zeros_like(tau[:, :6]), tau], dim=-1)
+               if model.floating else tau)
+    rhs = tau_gen - h
+    Breg = B + 1e-9 * torch.eye(model.nv, dtype=B.dtype, device=B.device)
+    if method == "chol":
+        return torch.cholesky_solve(rhs[..., None],
+                                    torch.linalg.cholesky(Breg))[..., 0]
+    if binv is None:
+        binv = linalg.spd_inverse_ns(Breg, iters=22, refine=2)
+    mv = lambda M, v: (M @ v[..., None])[..., 0]  # noqa: E731
+    x = mv(binv, rhs)
+    for _ in range(2):   # refinement against the true B
+        x = x + mv(binv, rhs - mv(Breg, x))
+    return x
+
+
+def integrate(model: RobotModel, state: RobotState, udot, dt) -> RobotState:
+    """Semi-implicit Euler; a floating-base pose is integrated on SE(3)."""
+    if model.floating:
+        base_vel = state.base_vel + dt * udot[:, :6]
+        qd = state.qd + dt * udot[:, 6:]
+        q = state.q + dt * qd
+        base_rot = state.base_rot @ spatial.so3_exp(base_vel[:, :3] * dt)
+        base_pos = state.base_pos + dt * torch.einsum(
+            "bij,bj->bi", state.base_rot, base_vel[:, 3:])
+        return RobotState(q=q, qd=qd, base_rot=base_rot, base_pos=base_pos,
+                          base_vel=base_vel)
+    qd = state.qd + dt * udot
+    return RobotState(q=state.q + dt * qd, qd=qd, base_rot=state.base_rot,
+                      base_pos=state.base_pos, base_vel=state.base_vel)
 
 
 @dataclasses.dataclass(frozen=True)

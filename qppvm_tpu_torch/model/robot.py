@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from qppvm_tpu_torch import device as devices
 from qppvm_tpu_torch.model import spatial
 
 REVOLUTE = 0
@@ -150,10 +151,10 @@ def build_model(*, parent, joint_type, axis, E_tree, p_tree, mass, com,
                 base_inertia_com=None, q_home=None, q_min=None, q_max=None,
                 tau_max=None, v_max=None, armature=None,
                 gravity=(0.0, 0.0, -9.81), dtype=torch.float32,
-                device="cpu") -> RobotModel:
+                device=devices.DEFAULT) -> RobotModel:
     """Assemble a RobotModel from per-link primitive data."""
     nj = len(parent)
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=devices.resolve(device))
     t = lambda a: torch.as_tensor(np.asarray(a), **kw)  # noqa: E731
     I_links = torch.stack([spatial.mcI(t(mass[i]), t(com[i]),
                                        t(inertia_com[i])) for i in range(nj)])

@@ -80,6 +80,18 @@ def so3_log(R):
     return w * scale[..., None]
 
 
+def so3_exp(w):
+    """Rotation vector -> rotation matrix, safe near 0."""
+    theta = torch.linalg.norm(w, dim=-1, keepdim=True)
+    small = theta[..., 0] < 1e-8
+    axis = w / torch.where(theta > 1e-8, theta, torch.ones_like(theta))
+    K = skew(axis)
+    t = theta[..., None]
+    I = torch.eye(3, dtype=w.dtype, device=w.device)
+    R = I + torch.sin(t) * K + (1.0 - torch.cos(t)) * (K @ K)
+    return torch.where(small[..., None, None], I + skew(w), R)
+
+
 def pose_error(R_ref, p_ref, R, p):
     """6D pose error [e_pos; e_rot] (linear-first, world frame):
     e_pos = p_ref - p, e_rot = log(R_ref R^T)."""

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from qppvm_tpu_torch import device as devices
 from qppvm_tpu_torch.model.robot import REVOLUTE, RobotModel, build_model
 
 
@@ -61,7 +62,7 @@ class _Builder:
         return i
 
     def finish(self, gravity=(0, 0, -9.81), dtype=torch.float32,
-               device="cpu"):
+               device=devices.DEFAULT):
         return build_model(
             parent=self.parent, joint_type=self.joint_type,
             axis=np.stack(self.axis), E_tree=np.stack(self.E),
@@ -107,9 +108,10 @@ def _add_leg6(b, prefix, parent, root_offset, foot_name):
                  tau=120.0, com_along=[0, 0, -1], link_name=foot_name)
 
 
-def humanoid(dtype=torch.float32, device="cpu") -> RobotModel:
+def humanoid(dtype=torch.float32, device=devices.DEFAULT) -> RobotModel:
     """Floating-base 32-DoF humanoid: 2x6 legs + 3 waist + 2x7 arms + 2 neck
-    + 1 head."""
+    + 1 head, on ``device`` (the card unless the caller asks for the
+    CPU)."""
     b = _Builder(root_name="pelvis", floating=True, base_mass=12.0,
                  base_size=(0.25, 0.3, 0.2))
     _add_leg6(b, "l_leg", -1, (0.0, 0.11, -0.05), "l_sole")

@@ -1,0 +1,137 @@
+"""Sampling MPC (MPPI) over batched WBC rollouts (port of
+qppvm_tpu/mpc/sampling.py, one device, no mesh).
+
+``SamplingMPC.sample`` draws the perturbed plans and the domain
+randomization from an explicit ``torch.Generator``; ``update`` rolls every
+sample out (the sample axis is the rollouts' batch) and takes the MPPI
+average. The two are separate so that callers, the tests among them, can
+feed the update samples drawn elsewhere. Every reduction over samples
+(min, softmax weights, argmin) is over the leading axis.
+
+Not ported yet (ROADMAP queue 1 item 2): ``step_recovery`` (the swing
+primitive's decision channel); the reference's mesh sharding has no
+counterpart on one card.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from qppvm_tpu_torch.model.robot import RobotState
+from qppvm_tpu_torch.mpc.rollout import (NOT_PORTED, RolloutConfig,
+                                         default_cost, make_rollout_fn)
+from qppvm_tpu_torch.opt.qp import QPState
+
+
+@dataclasses.dataclass(frozen=True)
+class MPPIConfig:
+    n_samples: int = 256
+    horizon: int = 16
+    lambda_: float = 1.0
+    noise_std: float = 0.15
+    push_std: float = 0.0      # random base pushes (N)
+    # per-rollout true-robot mass scale (lognormal) and ground-friction
+    # scale (uniform in [1 - mu_scale_range, 1]); 0 disables
+    mass_scale_std: float = 0.0
+    mu_scale_range: float = 0.0
+    step_recovery: bool = False
+    theta_noise_std: float = 1.0
+    dxy_noise_std: float = 0.08
+    nu: int = 3                # control dim (waist reference velocity)
+    # added to the cost of a rollout whose QP chain failed
+    fail_penalty: float = 1e6
+
+
+def expand_batch(state: RobotState, refs, warm, K: int):
+    """A batch-1 state, references and warm state repeated for K samples
+    (contiguous, as the level kernel requires)."""
+    rep = lambda a: a.expand(K, *a.shape[1:]).contiguous()  # noqa: E731
+
+    def tree(t):
+        return ({k: tree(v) for k, v in t.items()} if isinstance(t, dict)
+                else rep(t))
+
+    state = RobotState(**{f.name: rep(getattr(state, f.name))
+                          for f in dataclasses.fields(state)})
+    warm = tuple(QPState(**{f.name: rep(getattr(s, f.name))
+                            for f in dataclasses.fields(s)}) for s in warm)
+    return state, tree(refs), warm
+
+
+class SamplingMPC:
+    """MPPI controller: perturb the nominal waist-velocity plan, roll out the
+    full WBC-in-the-loop dynamics per sample, average exponentially."""
+
+    def __init__(self, plugin, mppi: MPPIConfig,
+                 rollout_cfg: Optional[RolloutConfig] = None,
+                 cost_fn=default_cost, contact_offsets=None):
+        if mppi.step_recovery:
+            raise NotImplementedError(f"step_recovery: {NOT_PORTED}")
+        self.plugin = plugin
+        self.mppi = mppi
+        self.rcfg = rollout_cfg or RolloutConfig(horizon=mppi.horizon)
+        self.rollout = make_rollout_fn(plugin, self.rcfg, cost_fn,
+                                       contact_offsets=contact_offsets)
+
+    def init_plan(self, dtype=torch.float32):
+        return torch.zeros((self.mppi.horizon, self.mppi.nu), dtype=dtype,
+                           device=self.plugin.device)
+
+    def sample(self, generator: torch.Generator, U_nom):
+        """(U (K, H, nu), scenario) for one plan step, drawn from
+        ``generator`` (on U_nom's device)."""
+        m = self.mppi
+        K = m.n_samples
+        kw = dict(generator=generator, dtype=U_nom.dtype,
+                  device=U_nom.device)
+        U = U_nom[None] + m.noise_std * torch.randn(K, m.horizon, m.nu, **kw)
+        scenario = {"push": m.push_std * torch.randn(K, m.horizon, 3, **kw)}
+        if m.mass_scale_std > 0.0:
+            scenario["mass_scale"] = torch.exp(
+                m.mass_scale_std * torch.randn(K, **kw))
+        if m.mu_scale_range > 0.0:
+            scenario["mu_scale"] = 1.0 - m.mu_scale_range * torch.rand(K, **kw)
+        return U, scenario
+
+    def update(self, state, refs, warm, U, scenario):
+        """The MPPI update from given samples: ``state``/``refs``/``warm``
+        of batch 1, ``U`` (K, H, nu), ``scenario`` as the rollout takes it.
+        Returns (U_new (H, nu), info); info stays on the device, and its
+        ``costs`` (K,) holds each sample's cost, failure penalty included."""
+        m = self.mppi
+        K = U.shape[0]
+        st, rf, w = expand_batch(state, refs, warm, K)
+        costs, health = self.rollout(st, rf, w, U, scenario)
+        failed = health["solver_failed"]
+        costs = torch.where(torch.isfinite(costs), costs,
+                            torch.full_like(costs, m.fail_penalty))
+        costs = costs + m.fail_penalty * failed.to(costs.dtype)
+        beta = torch.amin(costs)
+        wts = torch.exp(-(costs - beta) / m.lambda_)
+        wts = wts / torch.sum(wts)
+        U_new = torch.einsum("k,khu->hu", wts, U)
+        best = torch.argmin(costs)
+        info = {
+            "cost_min": beta,
+            "cost_mean": torch.mean(costs),
+            "ess": 1.0 / torch.sum(wts ** 2),
+            "solver_fail_frac": torch.mean(failed.to(costs.dtype)),
+            "prim_res_max": torch.amax(health["prim_res_max"]),
+            "U_best": U[best],
+            "best_failed": failed[best],
+            "solver_failed": failed,
+            "costs": costs,
+        }
+        return U_new, info
+
+    def plan(self, generator: torch.Generator, state, refs, warm, U_nom):
+        """One MPC re-planning step. Returns (U_new, info); the first row
+        of U_new is the control applied this tick."""
+        U, scenario = self.sample(generator, U_nom)
+        return self.update(state, refs, warm, U, scenario)
+
+    @staticmethod
+    def shift_plan(U):
+        return torch.cat([U[1:], U[-1:]], dim=0)

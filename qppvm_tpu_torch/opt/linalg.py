@@ -32,6 +32,35 @@ def spd_inverse_ns(K, iters: int = 24, refine: int = 2):
     return d[..., :, None] * X * d[..., None, :]
 
 
+def ns_warm_inverse(K, X_guess, iters: int = 4):
+    """NS inverse hot-started from ``X_guess`` (e.g. last step's inverse of
+    a slowly drifting SPD matrix) behind the contraction guard
+    sqrt(||I - X K||_1 ||I - X K||_inf) < 0.9, with the Jacobi-prescaled
+    cold start D^2 / ||D K D||_1 for items that fail it; the cold start runs
+    the same ``iters`` budget. Every test is per item of the leading
+    dimensions: an item whose iterate goes non-finite restarts from its own
+    cold start, and an item that ends non-finite returns its cold start."""
+    I = _eye(K)
+    absE = torch.abs(I - X_guess @ K)
+    err = torch.sqrt(torch.amax(torch.sum(absE, dim=-2), dim=-1)
+                     * torch.amax(torch.sum(absE, dim=-1), dim=-1))
+    err = torch.where(torch.isfinite(err), err, 2.0)
+    dinv = 1.0 / torch.clamp(torch.diagonal(K, dim1=-2, dim2=-1), min=1e-30)
+    sq = torch.sqrt(dinv)
+    Ks_norm1 = torch.amax(torch.sum(
+        torch.abs(K) * sq[..., :, None] * sq[..., None, :], dim=-2), dim=-1)
+    cold = I * (dinv / torch.clamp(Ks_norm1, min=1e-30)[..., None])[..., None, :]
+    X = torch.where((err < 0.9)[..., None, None], X_guess, cold)
+
+    def finite(M):
+        return torch.isfinite(M).all(dim=-1).all(dim=-1)[..., None, None]
+
+    for _ in range(iters):
+        Xn = X @ (2.0 * I - K @ X)
+        X = torch.where(finite(Xn), Xn, cold)
+    return torch.where(finite(X), X, cold)
+
+
 def spd_inverse(K, method: str = "ns", **kw):
     if method == "chol":
         return spd_inverse_chol(K)

@@ -1,0 +1,84 @@
+"""Batched SPD inverse by Newton-Schulz through a hand-written CUDA kernel
+(counterpart of qppvm_tpu/opt/pallas_linalg.py).
+
+``ns_inverse`` inverts a batch K (B, n, n) of SPD matrices with the
+arithmetic of ``linalg.spd_inverse_ns(K, iters, refine=0)``: Jacobi
+prescale, 1-norm start, ``iters`` steps X <- X (2I - Ks X). On a CUDA tensor
+it launches ``csrc/ns_inverse.cu`` (one thread block per matrix, Ks, X and
+one temporary in shared memory) or raises; on a CPU tensor it runs
+``ns_inverse_reference``, the same function in plain PyTorch.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from qppvm_tpu_torch.opt import linalg
+
+# Shared memory a block may use on Hopper (227 KB).
+MAX_SMEM_BYTES = 232448
+
+# Kernel launches made by ns_inverse; readers reset it to 0 before a run.
+launches = 0
+
+_lib = None
+
+
+def ns_inverse_reference(K, iters: int = 26):
+    """The kernel's function in plain PyTorch."""
+    return linalg.spd_inverse_ns(K, iters=iters, refine=0)
+
+
+def library() -> ctypes.CDLL:
+    """The built kernel library (compiled from csrc/ns_inverse.cu on first
+    use)."""
+    global _lib
+    if _lib is None:
+        from qppvm_tpu_torch import build
+        lib = build.load("ns_inverse")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ns_inverse_launch.argtypes = [p, p, i, i, i, p]
+        lib.ns_inverse_launch.restype = i
+        lib.ns_inverse_smem_bytes.argtypes = [i]
+        lib.ns_inverse_smem_bytes.restype = i
+        lib.ns_inverse_max_n.argtypes = []
+        lib.ns_inverse_max_n.restype = i
+        _lib = lib
+    return _lib
+
+
+def _launch(K, iters: int):
+    global launches
+    if K.dtype != torch.float32:
+        raise ValueError(f"K: need float32, got {K.dtype}")
+    if K.dim() != 3 or K.shape[1] != K.shape[2]:
+        raise ValueError(f"K: need shape (B, n, n), got {tuple(K.shape)}")
+    if not K.is_contiguous():
+        raise ValueError("K must be contiguous")
+    B, n, _ = K.shape
+    lib = library()
+    smem = lib.ns_inverse_smem_bytes(n)
+    if smem > MAX_SMEM_BYTES or n > lib.ns_inverse_max_n():
+        raise ValueError(f"n={n} needs {smem} bytes of shared memory per "
+                         f"block, more than the {MAX_SMEM_BYTES} a block "
+                         "can hold")
+    out = torch.empty_like(K)
+    with torch.cuda.device(K.device):
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        rc = lib.ns_inverse_launch(K.data_ptr(), out.data_ptr(), B, n,
+                                   int(iters), stream)
+    if rc != 0:
+        raise RuntimeError(f"ns_inverse kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out
+
+
+def ns_inverse(K, iters: int = 26):
+    """Inverse of each SPD matrix of K (B, n, n): the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor; anything else raises."""
+    if K.device.type == "cuda":
+        return _launch(K, iters)
+    if K.device.type == "cpu":
+        return ns_inverse_reference(K, iters)
+    raise ValueError(f"no NS inverse for device {K.device}")

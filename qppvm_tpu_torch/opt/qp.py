@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from qppvm_tpu_torch import device as devices
 from qppvm_tpu_torch.opt import linalg
 
 
@@ -49,10 +50,10 @@ class QPState:
 
     @staticmethod
     def zero(batch: int, n: int, m: int, dtype=torch.float32,
-             device="cpu") -> "QPState":
+             device=devices.DEFAULT) -> "QPState":
         # Kinv = 0 fails the contraction guard, so the first solve takes the
         # cold inverse.
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=devices.resolve(device))
         return QPState(x=torch.zeros((batch, n), **kw),
                        z=torch.zeros((batch, m), **kw),
                        y=torch.zeros((batch, m), **kw),
@@ -303,19 +304,34 @@ def solve(problem: QPProblem, state: Optional[QPState] = None, *,
 
 def _polish(P, q, A, l, u, x, y, steps: int, eps_active: float = 1e-4,
             inv_method: str = "ns", ns_iters: int = 24):
-    """Active-set polish: near-active rows (by primal proximity or dual
-    sign) become equalities of a Schur-complement KKT solve; the result is
-    accepted per item only if it keeps inactive rows feasible and does not
-    raise the dual residual."""
-    n = P.shape[-1]
-    dtype = P.dtype
+    """Active-set polish: the candidate of ``_polish_candidate`` on the
+    rows ``_polish_active`` picks, taken per item where ``_polish_accept``
+    accepts it, else the old (x, y)."""
+    lo_act, hi_act = _polish_active(A, l, u, x, y, eps_active)
+    x_p, y_p = _polish_candidate(P, q, A, l, u, lo_act, hi_act, steps,
+                                 inv_method, ns_iters)
+    ok = _polish_accept(P, q, A, l, u, x, y, x_p, y_p)[:, None]
+    return torch.where(ok, x_p, x), torch.where(ok, y_p, y)
+
+
+def _polish_active(A, l, u, x, y, eps_active: float = 1e-4):
+    """(lo_act, hi_act) (B, m) bool: rows near a bound by primal proximity
+    or by the sign of their multiplier; equality rows are upper-active."""
     Ax = _mv(A, x)
     y_scale = (torch.amax(torch.abs(y), dim=-1) + 1e-12)[:, None]
     lo_act = ((Ax - l) < eps_active * (1.0 + torch.abs(l))) | (y < -1e-6 * y_scale)
     hi_act = ((u - Ax) < eps_active * (1.0 + torch.abs(u))) | (y > 1e-6 * y_scale)
     eq = (u - l) < 1e-12 * (1.0 + torch.abs(u))
     hi_act = hi_act | eq
-    lo_act = lo_act & ~hi_act
+    return lo_act & ~hi_act, hi_act
+
+
+def _polish_candidate(P, q, A, l, u, lo_act, hi_act, steps: int,
+                      inv_method: str = "ns", ns_iters: int = 24):
+    """Polish candidate (x_p, y_p): the active rows become equalities of a
+    Schur-complement KKT solve."""
+    n = P.shape[-1]
+    dtype = P.dtype
     act = lo_act | hi_act
     b_act = torch.where(hi_act, u, l)
     Aa = A * act[..., None].to(dtype)
@@ -325,14 +341,17 @@ def _polish(P, q, A, l, u, x, y, steps: int, eps_active: float = 1e-4,
     x_p, y_sol = linalg.kkt_solve_schur(P, Aa, -q, ba, delta, method=inv_method,
                                         refine=max(2, steps), row_reg=row_reg,
                                         ns_iters=ns_iters)
-    y_p = torch.where(act, y_sol, 0.0)
+    return x_p, torch.where(act, y_sol, 0.0)
 
+
+def _polish_accept(P, q, A, l, u, x, y, x_p, y_p):
+    """(B,) bool: the candidate keeps every row feasible to 1e-6 relative,
+    does not raise the dual residual and is finite."""
     Axp = _mv(A, x_p)
     scale_l = 1e-6 * (1.0 + torch.abs(l))
     scale_u = 1e-6 * (1.0 + torch.abs(u))
     feas = (Axp >= l - scale_l).all(-1) & (Axp <= u + scale_u).all(-1)
     dual_old = torch.amax(torch.abs(_mv(P, x) + q + _mtv(A, y)), dim=-1)
     dual_new = torch.amax(torch.abs(_mv(P, x_p) + q + _mtv(A, y_p)), dim=-1)
-    ok = (feas & (dual_new <= dual_old + 1e-12)
-          & torch.isfinite(x_p).all(-1))[:, None]
-    return torch.where(ok, x_p, x), torch.where(ok, y_p, y)
+    return (feas & (dual_new <= dual_old + 1e-12)
+            & torch.isfinite(x_p).all(-1))

@@ -11,6 +11,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from qppvm_tpu_torch import device as devices
+
 
 @dataclasses.dataclass(frozen=True)
 class AffineExpr:
@@ -32,10 +34,10 @@ class Optvar:
     """Named segments of one stacked decision variable."""
 
     def __init__(self, variables: Sequence[Tuple[str, int]],
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device=devices.DEFAULT):
         self._slices: Dict[str, slice] = {}
         self.dtype = dtype
-        self.device = device
+        self.device = devices.resolve(device)
         off = 0
         for name, sz in variables:
             if name in self._slices:

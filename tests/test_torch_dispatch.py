@@ -7,7 +7,8 @@
   to ``hierarchy.fallbacks``;
 - a level whose rows are all equalities is routed to qp.solve (counted),
   and ``solve_level`` itself raises on it;
-- ``solve_level`` raises on a device that is neither CPU nor CUDA.
+- ``solve_level`` raises on a device that is neither CPU nor CUDA;
+- the entry points default to the card, and raise where there is none.
 """
 import subprocess
 import sys
@@ -117,4 +118,20 @@ def test_config_from_opts_scope():
                 dict(assume_warm_kinv=False), dict(inv_method="chol")):
         assert level_qp.config_from_opts(dict(RT, **bad), n_eq_head=0,
                                          n_eq_tail=0, iters=12) is None
-    assert qp.QPState.zero(2, 3, 4).Kinv.shape == (2, 3, 3)
+    assert qp.QPState.zero(2, 3, 4, device="cpu").Kinv.shape == (2, 3, 3)
+
+
+def test_entry_points_default_to_the_card():
+    from qppvm_tpu_torch.model import convert, zoo
+    from qppvm_tpu_torch.mpc.humanoid_plan import humanoid_plan
+    from qppvm_tpu_torch.opt.variables import Optvar
+    from qppvm_tpu_torch.runtime.rt_loop import humanoid_loop
+    calls = (zoo.humanoid, lambda: qp.QPState.zero(1, 2, 3),
+             lambda: Optvar([("x", 2)]), lambda: convert.refs({"a": [1.0]}),
+             humanoid_loop, humanoid_plan)
+    if torch.cuda.is_available():
+        assert zoo.humanoid().device.type == "cuda"
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -69,15 +69,31 @@ def jax_side():
 
     def record_polish(P, q, A, l, u, x, y, **kw):
         x_new, y_new = orig_polish(P, q, A, l, u, x, y, **kw)
-        jax.debug.callback(lambda a: polish.append(bool(a)),
-                           jnp.any(x_new != x), ordered=True)
+        jax.debug.callback(
+            lambda acc, *rows: polish.append(
+                (bool(acc), tuple(np.asarray(r) for r in rows))),
+            jnp.any(x_new != x), A, l, u, x, y, ordered=True)
         return x_new, y_new
+
+    # the residuals each rho adaptation reads (the in-loop calls, which
+    # pass the equality projector Pn; both on_start levels have equalities)
+    residuals = []
+    orig_residuals = jqp._rel_residuals
+
+    def record_residuals(P, q, A, x, z, y, Pn=None):
+        prim, dual = orig_residuals(P, q, A, x, z, y, Pn=Pn)
+        if Pn is not None:
+            jax.debug.callback(
+                lambda p, d: residuals.append((float(p), float(d))),
+                prim, dual, ordered=True)
+        return prim, dual
 
     with pytest.MonkeyPatch.context() as mp:
         # validate() reads the stack on the host, which jit cannot; the
         # port runs the same check in its own on_start
         mp.setattr(JAutoStack, "validate", staticmethod(lambda *a, **k: None))
         mp.setattr(jqp, "_polish", record_polish)
+        mp.setattr(jqp, "_rel_residuals", record_residuals)
         refs, warm, waist = jax.jit(plugin.on_start)(st)
         jax.block_until_ready(warm)
         jax.effects_barrier()
@@ -119,7 +135,9 @@ def jax_side():
                             for k in convert.STATE_FIELDS},
                 com_rows=_np(com),state=_np(st), warm=_np(warm),
                 ref_leaves=jax.tree_util.tree_leaves_with_path(_np(refs)),
-                waist=np.asarray(waist), polish=polish,
+                waist=np.asarray(waist), polish=[acc for acc, _ in polish],
+                polish_inputs=[rows for _, rows in polish],
+                residuals=residuals,
                 states={k: getattr(states, k) for k in convert.STATE_FIELDS},
                 refs_b=refs_b, ticks=ticks, stack=_np(stack),
                 warm_b=[{k: getattr(lv, k) for k in convert.QPSTATE_FIELDS}
@@ -128,7 +146,7 @@ def jax_side():
 
 @pytest.fixture(scope="module")
 def torch_side():
-    plugin = ForceAccPlugin(zoo.humanoid(), contact_links=CONTACTS,
+    plugin = ForceAccPlugin(zoo.humanoid(device="cpu"), contact_links=CONTACTS,
                             waist_link="pelvis", iters=12,
                             solver_opts=dict(PROFILE, backend="kernel"))
     st = standing_state(plugin.model, CONTACTS)
@@ -156,10 +174,10 @@ def test_standing_state_matches_reference(jax_side, torch_side):
 
 def test_stack_data_matches_reference(jax_side, torch_side):
     plugin = torch_side["plugin"]
-    ts = convert.robot_state(jax_side["states"])
+    ts = convert.robot_state(jax_side["states"], device="cpu")
     data = dynamics.compute_model_data(plugin.model, ts)
     sd = plugin.stack.build(plugin.model, data, ts,
-                            convert.refs(jax_side["refs_b"]),
+                            convert.refs(jax_side["refs_b"], device="cpu"),
                             nx=plugin.opt.size)
     ref = jax_side["stack"]
     assert (sd.n_eq, sd.has_box) == (ref.n_eq, ref.has_box) == (6, False)
@@ -172,6 +190,62 @@ def test_stack_data_matches_reference(jax_side, torch_side):
         _close(getattr(sd, k), getattr(ref, k))
 
 
+def _replay_on_start(plugin, state, decide, active_rows=None,
+                     residuals=None):
+    """The port's on_start with each polish acceptance replaced by
+    ``decide(k, own)`` (k: the polish call's index; own: the port's own
+    guard decision for the one batch item) and, with ``active_rows``, each
+    polish's active set replaced by the one the port's rule picks on
+    ``active_rows[k]`` = (A, l, u, x, y). With ``residuals``, the (prim,
+    dual) that each rho adaptation reads are replaced by the recorded ones,
+    so that rho_scale, and each KKT matrix built from it, follows the
+    recording. Returns the warm state and, per polish call, the port's own
+    decision, the imposed one and whether the output is the candidate or
+    the old (x, y)."""
+    calls, adapts = [], []
+    orig_active, orig_residuals = qp._polish_active, qp._rel_residuals
+    orig_accept, orig_polish = qp._polish_accept, qp._polish
+
+    def imposed_residuals(P, q, A, x, z, y, Pn=None):
+        prim, dual = orig_residuals(P, q, A, x, z, y, Pn=Pn)
+        if residuals is None or Pn is None:
+            return prim, dual
+        rec = residuals[len(adapts)]
+        adapts.append(rec)
+        return tuple(torch.full_like(v, r) for v, r in zip((prim, dual), rec))
+
+    def imposed_active(A, l, u, x, y, eps_active=1e-4):
+        if active_rows is None:
+            return orig_active(A, l, u, x, y, eps_active)
+        rows = active_rows[len(calls)]
+        return orig_active(*(torch.tensor(r[None], dtype=torch.float32)
+                             for r in rows), eps_active)
+
+    def imposed_accept(P, q, A, l, u, x, y, x_p, y_p):
+        own = orig_accept(P, q, A, l, u, x, y, x_p, y_p)
+        assert own.shape == (1,)
+        take = bool(decide(len(calls), bool(own[0])))
+        calls.append(dict(own=bool(own[0]), imposed=take, old=x, cand=x_p))
+        return torch.full_like(own, take)
+
+    def observed_polish(*args, **kw):
+        x_new, y_new = orig_polish(*args, **kw)
+        c = calls[-1]
+        c["took_cand"] = bool(torch.equal(x_new, c["cand"]))
+        c["took_old"] = bool(torch.equal(x_new, c["old"]))
+        return x_new, y_new
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(qp, "_polish_active", imposed_active)
+        mp.setattr(qp, "_polish_accept", imposed_accept)
+        mp.setattr(qp, "_polish", observed_polish)
+        mp.setattr(qp, "_rel_residuals", imposed_residuals)
+        _, warm, _ = plugin.on_start(state)
+    if residuals is not None:
+        assert len(adapts) == len(residuals)
+    return warm, calls
+
+
 def test_on_start_matches_reference(jax_side, torch_side):
     """References, initial waist and the seeded warm state.
 
@@ -179,12 +253,19 @@ def test_on_start_matches_reference(jax_side, torch_side):
     relative feasibility on the DynamicFeasibility equality rows) is a
     float32 knife edge on this ill-conditioned level: the inputs reach it
     with roundoff-level differences, and the two sides may take different
-    branches (the port may accept the first polish of level 0 where the
-    reference rejects it). Fed identical inputs the two implementations
-    agree. So the branch record is reported, not pinned; the port's
-    on_start is replayed with the reference's branches imposed (its own
-    polish where the reference accepted, none where it rejected) and its
-    warm state held to the level-kernel bars."""
+    branches (which side JAX's XLA lands on differs between machines). The
+    active set is a second such edge: a row whose multiplier is roundoff
+    noise is active by the sign of that noise (one row of level 0 on the
+    first polish), and the candidate then moves by hundreds of force
+    units. Fed identical inputs the two implementations agree. So the
+    branch record is reported, not pinned; the port's on_start is replayed
+    with the reference's decisions imposed on both steps: the active set
+    the rule picks on the reference's recorded polish inputs, and the
+    reference's recorded acceptance (the port's own candidate where the
+    reference accepted, the old (x, y) where it rejected). Its warm state
+    is held to the level-kernel bars, and by the first tick run from it;
+    the KKT inverses are held in a second replay that also imposes the
+    reference's rho adaptation."""
     record = (f"polish branches accepted: reference {jax_side['polish']}, "
               f"port {torch_side['polish']}")
     assert len(torch_side["polish"]) == len(jax_side["polish"]) == 8, record
@@ -197,37 +278,83 @@ def test_on_start_matches_reference(jax_side, torch_side):
         _close(ours[0], leaf)
     _close(torch_side["waist"][0], jax_side["waist"])
 
-    plugin = torch_side["plugin"]
-    branches = iter(jax_side["polish"])
-    orig_polish = qp._polish
-
-    def reference_branch(P, q, A, l, u, x, y, **kw):
-        if next(branches):
-            return orig_polish(P, q, A, l, u, x, y, **kw)
-        return x, y
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(qp, "_polish", reference_branch)
-        _, warm, _ = plugin.on_start(torch_side["state"])
+    ref_branches = jax_side["polish"]
+    warm, calls = _replay_on_start(torch_side["plugin"], torch_side["state"],
+                                   lambda k, own: ref_branches[k],
+                                   active_rows=jax_side["polish_inputs"])
+    assert [c["imposed"] for c in calls] == ref_branches, record
     for ours, ref in zip(warm, jax_side["warm"]):
         sc = float(np.max(np.abs(ref.x))) + 1.0
         np.testing.assert_allclose(ours.x[0], ref.x, atol=2e-4 * sc, rtol=2e-4,
                                    err_msg=record)
-        for k in ("z", "y", "Kinv"):
+        for k in ("z", "y"):
             _close(getattr(ours, k)[0], getattr(ref, k), rtol=5e-4, floor=5e-4)
         # on_start adapts rho at rho_adapt_tol 0 from roundoff-level
         # residuals (see test_torch_qp's cold-profile test): 10%
         np.testing.assert_allclose(ours.rho_scale[0], ref.rho_scale, rtol=0.1,
                                    err_msg=record)
 
+    # a 7% rho_scale gap moves level 1's KKT matrix, so the KKT inverses
+    # are held elementwise at the bars above in a second replay, with the
+    # reference's rho adaptation imposed too (4 solves x 4 chunks): rho then
+    # follows the reference's to float32 roundoff, and each Kinv inverts the
+    # same matrix as the reference's
+    assert len(jax_side["residuals"]) == 16
+    warm_rho, _ = _replay_on_start(torch_side["plugin"], torch_side["state"],
+                                   lambda k, own: ref_branches[k],
+                                   active_rows=jax_side["polish_inputs"],
+                                   residuals=jax_side["residuals"])
+    for ours, ref in zip(warm_rho, jax_side["warm"]):
+        np.testing.assert_allclose(ours.rho_scale[0], ref.rho_scale,
+                                   rtol=1e-6, err_msg=record)
+        sc = float(np.max(np.abs(ref.x))) + 1.0
+        np.testing.assert_allclose(ours.x[0], ref.x, atol=2e-4 * sc, rtol=2e-4,
+                                   err_msg=record)
+        _close(ours.Kinv[0], ref.Kinv, rtol=5e-4, floor=5e-4)
+
+    # the whole warm state of the first replay by what the tick does with
+    # it: the first batched tick from it against the reference's first tick
+    # from its own, at the bars of the chained test
+    ts = convert.robot_state(jax_side["states"], device="cpu")
+    refs = convert.refs(jax_side["refs_b"], device="cpu")
+    warm_b = tuple(qp.QPState(**{f: getattr(lv, f).expand(
+        B, *getattr(lv, f).shape[1:]).contiguous()
+        for f in convert.QPSTATE_FIELDS}) for lv in warm)
+    tau, warm_t, aux = torch_side["plugin"]._step_impl(ts, refs, warm_b)
+    tau_ref, warm_ref, aux_ref = jax_side["ticks"][0]
+    np.testing.assert_array_equal(aux.solver_failed.numpy(),
+                                  aux_ref.solver_failed)
+    _close(tau, tau_ref, rtol=1e-3, floor=1e-3)
+    for ours, ref in zip(warm_t, warm_ref):
+        sc = float(np.max(np.abs(ref.x))) + 1.0
+        np.testing.assert_allclose(ours.x, ref.x, atol=2e-4 * sc, rtol=2e-4,
+                                   err_msg=record)
+
+
+def test_on_start_replay_takes_the_imposed_decision(torch_side):
+    """The replay mechanism itself, whichever side JAX lands on: every
+    polish decision is flipped against the port's own guard, and each
+    polish must then return the candidate where acceptance was imposed and
+    the old (x, y) where rejection was."""
+    _, calls = _replay_on_start(torch_side["plugin"], torch_side["state"],
+                                lambda k, own: not own)
+    assert len(calls) == 8
+    assert any(c["imposed"] and not c["own"] for c in calls), calls
+    for k, c in enumerate(calls):
+        assert c["imposed"] != c["own"]
+        if c["imposed"]:
+            assert c["took_cand"], f"polish {k}: imposed accept not taken"
+        else:
+            assert c["took_old"], f"polish {k}: imposed reject not taken"
+
 
 def test_two_chained_ticks_match_reference(jax_side, torch_side):
     """tau over two chained batched ticks from the reference's own on_start
     state (carried across with model.convert), so the tick is held alone."""
     plugin = torch_side["plugin"]
-    ts = convert.robot_state(jax_side["states"])
-    refs = convert.refs(jax_side["refs_b"])
-    warm = convert.qp_states(jax_side["warm_b"])
+    ts = convert.robot_state(jax_side["states"], device="cpu")
+    refs = convert.refs(jax_side["refs_b"], device="cpu")
+    warm = convert.qp_states(jax_side["warm_b"], device="cpu")
     for tau_ref, warm_ref, aux_ref in jax_side["ticks"]:
         tau, warm, aux = plugin._step_impl(ts, refs, warm)
         assert not aux.solver_failed.any()
@@ -249,10 +376,11 @@ def test_com_task_rows_match_reference(jax_side, torch_side):
     the default stack leaves out, assembled alone (6 rows: net force, and
     moments about the CoM)."""
     plugin = torch_side["plugin"]
-    ts = convert.robot_state(jax_side["com_states"])
+    ts = convert.robot_state(jax_side["com_states"], device="cpu")
     ctx = AssembleCtx(model=plugin.model,
                       data=dynamics.compute_model_data(plugin.model, ts),
-                      state=ts, refs=convert.refs(jax_side["refs_b"]),
+                      state=ts,
+                      refs=convert.refs(jax_side["refs_b"], device="cpu"),
                       nx=plugin.opt.size)
     A, b = plugin.com_task.assemble(ctx)
     A_ref, b_ref = jax_side["com_rows"]

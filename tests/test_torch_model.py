@@ -105,7 +105,7 @@ def _sibling_tree():
 
 
 def test_zoo_humanoid_matches_reference():
-    jm, tm = jzoo.humanoid(), zoo.humanoid()
+    jm, tm = jzoo.humanoid(), zoo.humanoid(device="cpu")
     arrays, meta = _jax_model_arrays(jm)
     for k in convert.MODEL_ARRAYS:
         np.testing.assert_allclose(getattr(tm, k).numpy(), arrays[k],
@@ -118,10 +118,10 @@ def test_zoo_humanoid_matches_reference():
 @pytest.fixture(scope="module")
 def humanoid_case():
     jm = jzoo.humanoid()
-    tm = zoo.humanoid()
+    tm = zoo.humanoid(device="cpu")
     arrs = _random_states(jm.nj, seed=0)
     udot = np.random.default_rng(1).normal(size=(B, tm.nv))
-    ts = convert.robot_state(arrs)
+    ts = convert.robot_state(arrs, device="cpu")
     ref = _jax_reference(jm, arrs, udot, frames=("l_sole", "pelvis"),
                          relative=(("arm1_7", "torso"),))
     return tm, ts, udot, ref, dynamics.compute_model_data(tm, ts)
@@ -165,9 +165,9 @@ def test_relative_frame_data_matches_reference(humanoid_case):
 def test_sibling_tree_rnea_and_frames_match_reference():
     jm = _sibling_tree()
     arrays, meta = _jax_model_arrays(jm)
-    tm = convert.robot_model(arrays, meta)
+    tm = convert.robot_model(arrays, meta, device="cpu")
     arrs = _random_states(jm.nj, seed=3)
-    ts = convert.robot_state(arrs)
+    ts = convert.robot_state(arrs, device="cpu")
     udot = np.random.default_rng(4).normal(size=(B, tm.nv))
     ref = _jax_reference(jm, arrs, udot, frames=("tool", "imu"))
     tau = dynamics.rnea(tm, ts, torch.tensor(udot, dtype=torch.float32))
