@@ -8,9 +8,12 @@ Phases, each fatal on failure:
 2. hold the level-QP kernel against its plain PyTorch version on WBC-shaped
    random problems at the humanoid tick's level shapes, B = 1024, cold then
    warm, to the tolerances of tests/test_pallas_qp.py (rho_scale as
-   qppvm_tpu_torch/opt/level_qp_parity.py says), and time both; then the
-   same at the MPC rollout's profile (no z clip, no cold budget, 8 warm NS
-   iterations, rho carried) at B = 512, cold then two warm solves;
+   qppvm_tpu_torch/opt/level_qp_parity.py says), and time both; the same
+   at B = 1, the real-time loop's size; then the same at the MPC rollout's
+   profile (no z clip, no cold budget, 8 warm NS iterations, rho carried)
+   at B = 512, cold then two warm solves, timed warm. Kernel times are
+   device times (the host queues every timed launch ahead, LEAD_CYCLES);
+   at B = 1 the time of a call with the wrapper's host work is printed too;
 3. drive the main path: ForceAccPlugin on the humanoid with bench.py's RT
    profile, on_start, then 5 chained batched ticks at B = 1024 (q perturbed
    by 0.01 N(0, 1)); gate on zero solver failures and finite torques,
@@ -77,6 +80,9 @@ NS_B, NS_N, NS_ITERS = 1024, 64, 26
 NS_ATOL, NS_RTOL, NS_RESID = 2e-4, 2e-3, 5e-3
 LOOP_TICKS, KERNEL_LOOP_TICKS, LOOP_COMPARE = 500, 100, 5
 MPC_REPS = 3
+# device sleep ahead of timed kernel launches: about 10 ms at 2 GHz, ample
+# for the host to queue 20 launches of a wrapper
+LEAD_CYCLES = 20_000_000
 MPC_DRAWS = 3
 # one H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
@@ -86,9 +92,15 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_time_ms(torch, fn, reps=20):
+def cuda_time_ms(torch, fn, reps=20, lead=False):
+    """Mean ms of ``fn`` over ``reps`` runs between CUDA events. With
+    ``lead`` the stream first sleeps for LEAD_CYCLES, so the host has queued
+    every run before the start event and the events time the device alone
+    (at B = 1 a wrapper's host time exceeds its kernel's)."""
     fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if lead:
+        torch.cuda._sleep(LEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -207,6 +219,17 @@ def check_level_phase(torch, parity, level_qp, cfg, prob, state, label,
         max_err = max(max_err, max(errs.values()))
         state = out[:5]   # warm: the kernel's own state, rho_scale too
     return max_err, state
+
+
+def time_level(torch, level_qp, cfg, prob, state):
+    """(kernel ms, plain ms) of one level solve from ``state``, timed in
+    turns plain, kernel, kernel, plain; the kernel on the device alone."""
+    run_k = lambda: level_qp.solve_level(cfg, *prob, *state)  # noqa: E731
+    run_p = lambda: level_qp.solve_level_reference(cfg, *prob, *state)  # noqa
+    p1 = cuda_time_ms(torch, run_p)
+    k1, k2 = (cuda_time_ms(torch, run_k, lead=True) for _ in range(2))
+    p2 = cuda_time_ms(torch, run_p)
+    return (k1 + k2) / 2, (p1 + p2) / 2
 
 
 def phase_ns_inverse(torch, dev, card):
@@ -426,6 +449,7 @@ def main():
 
     # ---- 2. level kernel vs plain version ----------------------------------
     max_err, level_ms, level_bound = 0.0, [], []
+    level_ms_b1, level_ms_rollout = [], []
     for i, (n, m, h, t) in enumerate(LEVEL_SHAPES):
         cfg = level_qp.LevelQPConfig(n_eq_head=h, n_eq_tail=t,
                                      cold_ns_iters=10)
@@ -435,28 +459,41 @@ def main():
             parity.zero_state(B, n, m, dev), f"n={n} m={m} h={h} t={t}")
         if (n, m, h, t) in MAIN_SHAPES:
             max_err = max(max_err, err)
-            run_k = lambda: level_qp.solve_level(cfg, *prob, *state)  # noqa
-            run_p = lambda: level_qp.solve_level_reference(  # noqa: E731
-                cfg, *prob, *state)
-            p1, k1, k2, p2 = (cuda_time_ms(torch, f)
-                              for f in (run_p, run_k, run_k, run_p))
-            k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            k_ms, p_ms = time_level(torch, level_qp, cfg, prob, state)
             level_ms.append((k_ms, p_ms))
             level_bound.append(level_qp_cost(cfg, B, n, m))
             b_ms, b_by = bound_ms(*level_bound[-1])
             print(f"[{card}] level n={n} m={m} h={h} t={t} B={B}: "
                   f"kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by})")
+            # the real-time tick's size: one problem, one block
+            prob1 = parity.random_problems(1, n, m, h, t, dev, seed=20 + i)
+            err, state1 = check_level_phase(
+                torch, parity, level_qp, cfg, prob1,
+                parity.zero_state(1, n, m, dev),
+                f"B=1 n={n} m={m} h={h} t={t}")
+            max_err = max(max_err, err)
+            k_ms, p_ms = time_level(torch, level_qp, cfg, prob1, state1)
+            call_ms = cuda_time_ms(torch, lambda: level_qp.solve_level(
+                cfg, *prob1, *state1))
+            level_ms_b1.append(k_ms)
+            print(f"[{card}] level n={n} m={m} h={h} t={t} B=1: kernel "
+                  f"{k_ms:.4f} ms on the device ({call_ms:.4f} ms a call with "
+                  f"the wrapper's host time), plain PyTorch {p_ms:.4f} ms")
     for i, (n, m, h, t) in enumerate(MAIN_SHAPES):
         cfg = level_qp.LevelQPConfig(n_eq_head=h, n_eq_tail=t,
                                      **ROLLOUT_LEVEL)
         prob = parity.random_problems(N_SAMPLES, n, m, h, t, dev, seed=10 + i)
-        err, _ = check_level_phase(
+        label = f"rollout profile B={N_SAMPLES} n={n} m={m} h={h} t={t}"
+        err, state = check_level_phase(
             torch, parity, level_qp, cfg, prob,
-            parity.zero_state(N_SAMPLES, n, m, dev),
-            f"rollout profile B={N_SAMPLES} n={n} m={m} h={h} t={t}",
+            parity.zero_state(N_SAMPLES, n, m, dev), label,
             phases=("cold", "warm", "warm 2"))
         max_err = max(max_err, err)
+        k_ms, p_ms = time_level(torch, level_qp, cfg, prob, state)
+        level_ms_rollout.append(k_ms)
+        print(f"[{card}] level {label}: kernel {k_ms:.4f} ms, plain PyTorch "
+              f"{p_ms:.4f} ms")
 
     # ---- 3. main path -------------------------------------------------------
     plugins, states, refs_b, warm_b = main_path_inputs(torch, dev)
@@ -522,6 +559,7 @@ def main():
         "ms": sum(k for k, _ in level_ms),
         "plain_ms": sum(p for _, p in level_ms),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ms_b1": sum(level_ms_b1), "ms_rollout_b512": sum(level_ms_rollout),
         "launches_by_path": {"batched_tick": launches,
                              "closed_loop_b1": loop_launches,
                              "mpc_plans": mpc_launches}}, ns_row]}))

@@ -10,9 +10,15 @@ Level kernel: WBC-shaped random problems at the two level shapes of the
 humanoid tick (n 44; m 12 with 6 head equalities; m 18 with 6 head and 6
 tail) and without equalities, in the RT tick's profile and in the MPC
 rollout's (no z clip, no cold NS budget, 8 warm NS iterations, rho carried
-across solves); the bars are those of tests/test_pallas_qp.py:72-88
-(kernel vs reference solver), except for rho_scale
-(``level_qp_parity.check_rho_scale`` says why and how).
+across solves); then the kernel's edges in the RT profile: n off the
+16-wide tile (37) and on 4 x 4 tiles (61), B = 1 and 37, tail equalities
+only, ne 12 and 13 (the one-warp and the block-wide Gram NS), more
+inequality rows than variables, one inequality row, one launch where half
+the items take the warm branch and half the cold one, a non-finite warm
+Kinv, and an item whose cold NS diverges and takes the diagonal fallback.
+The bars are those of tests/test_pallas_qp.py:72-88 (kernel vs reference
+solver), except for rho_scale (``level_qp_parity.check_rho_scale`` says
+why and how).
 
 NS-inverse kernel: SPD batches K = M M^T + 0.5 I at n 16 / 44 / 64, B = 1
 included, to the bars of tests/test_pallas_linalg.py: atol 2e-4 + rtol
@@ -26,6 +32,22 @@ from qppvm_tpu_torch.opt import level_qp_parity as parity
 
 pytestmark = pytest.mark.cuda
 SHAPES = [(44, 12, 6, 0), (44, 18, 6, 6), (44, 12, 0, 0)]
+# (n, m, h, t, B, warm start): the humanoid's shapes, then the kernel's
+# edges; "own" warm-starts from the kernel's cold output
+LEVEL_CASES = [(*s, 256, "own") for s in SHAPES] + [
+    (37, 12, 6, 0, 37, "own"),     # n not a multiple of the 16-wide tile
+    (61, 14, 4, 3, 37, "own"),     # 4 x 4 register tiles
+    (44, 12, 6, 0, 1, "own"),      # the real-time loop's B = 1
+    (44, 18, 6, 6, 1, "own"),
+    (44, 18, 0, 6, 37, "own"),     # tail equalities only
+    (44, 30, 12, 0, 37, "own"),    # ne 12: the largest one-warp Gram NS
+    (44, 30, 7, 6, 37, "own"),     # ne 13: the block-wide Gram NS
+    (20, 25, 0, 0, 37, "own"),     # more inequality rows than variables
+    (44, 7, 6, 0, 37, "own"),      # one inequality row
+    (44, 12, 6, 0, 37, "half"),    # warm Kinv good on even items only
+    (44, 18, 6, 6, 37, "nonfinite"),   # NaN / inf in the warm Kinv
+    (44, 12, 6, 0, 37, "indefinite"),  # item 0's NS ends non-finite
+]
 
 
 @pytest.fixture
@@ -35,19 +57,44 @@ def device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n,m,h,t", SHAPES)
-def test_kernel_matches_plain_version_cold_then_warm(device, n, m, h, t):
-    B = 256
-    cfg = level_qp.LevelQPConfig(n_eq_head=h, n_eq_tail=t, cold_ns_iters=10)
+def _warm_state(out, warm):
+    """The second solve's warm state from the first solve's outputs."""
+    x, z, y, K, r = out[:5]
+    K = K.clone()
+    if warm == "half":    # odd items: a Kinv the contraction guard rejects
+        g = torch.Generator(device=K.device).manual_seed(5)
+        K[1::2] = 3.0 * torch.randn(K[1::2].shape, generator=g,
+                                    device=K.device)
+    elif warm == "nonfinite":   # the guard's error is not finite: cold start
+        K[0, 0, 0] = float("nan")
+        K[-1, 2, 3] = float("inf")
+    return x, z, y, K, r
+
+
+@pytest.mark.parametrize("n,m,h,t,B,warm", LEVEL_CASES)
+def test_kernel_matches_plain_version_cold_then_warm(device, n, m, h, t, B,
+                                                    warm):
+    cfg = level_qp.LevelQPConfig(
+        n_eq_head=h, n_eq_tail=t,
+        cold_ns_iters=40 if warm == "indefinite" else 10)
     prob = parity.random_problems(B, n, m, h, t, device, seed=0)
+    if warm == "indefinite":
+        # P - 3 I is indefinite: the cold NS of item 0 diverges, and the
+        # solve must fall back to the diagonal cold start, as qp.py does
+        P = prob[0].clone()
+        P[0] -= 3.0 * torch.eye(n, device=device)
+        prob = (P, *prob[1:])
     state = parity.zero_state(B, n, m, device)
-    for _ in range(2):   # cold from zero, then warm from the kernel's state
+    for k in range(2):   # cold from zero, then warm
         before = level_qp.launches
         out = level_qp.solve_level(cfg, *prob, *state)
         torch.cuda.synchronize()
         assert level_qp.launches == before + 1
         parity.check_level_outputs(cfg, prob, state, out)
-        state = out[:5]
+        if warm == "indefinite":
+            K0 = out[3][0]
+            assert torch.equal(K0, torch.diag_embed(torch.diagonal(K0)))
+        state = _warm_state(out, warm)
 
 
 @pytest.mark.parametrize("n,m,h,t", SHAPES[:2])
