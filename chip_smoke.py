@@ -6,9 +6,11 @@ Phases, each fatal on failure:
 1. build both kernels (csrc/level_qp.cu, csrc/ns_inverse.cu; one nvcc each,
    started together) and print the card;
 2. hold the level-QP kernel against its plain PyTorch version on WBC-shaped
-   random problems at the humanoid tick's level shapes, B = 1024, cold then
-   warm, to the tolerances of tests/test_pallas_qp.py (rho_scale as
-   qppvm_tpu_torch/opt/level_qp_parity.py says), and time both; the same
+   random problems at the humanoid tick's level shapes and two others (no
+   equalities; more inequality rows than one product tile covers), B = 1024,
+   cold then warm, to the tolerances of tests/test_pallas_qp.py (rho_scale as
+   qppvm_tpu_torch/opt/level_qp_parity.py says), and time both at the
+   humanoid's shapes; the same
    at B = 1, the real-time loop's size; then the same at the MPC rollout's
    profile (no z clip, no cold budget, 8 warm NS iterations, rho carried)
    at B = 512, cold then two warm solves, timed warm. Kernel times are
@@ -59,9 +61,10 @@ REPS = 12
 CONTACTS = ("l_sole", "r_sole")
 RT_PROFILE = dict(rho_updates=0, warm_kinv_iters=4, cold_ns_iters=10,
                   scale_iters=2, pinv_ns_iters=5)
-# humanoid level shapes (n, m, head eqs, tail eqs), and one without equalities
+# humanoid level shapes (n, m, head eqs, tail eqs), one without equalities,
+# and one with 54 inequality rows, more than the 48 of one product tile
 MAIN_SHAPES = [(44, 12, 6, 0), (44, 18, 6, 6)]
-LEVEL_SHAPES = MAIN_SHAPES + [(44, 12, 0, 0)]
+LEVEL_SHAPES = MAIN_SHAPES + [(44, 12, 0, 0), (44, 66, 6, 6)]
 BACKENDS = ("kernel", "torch")   # level solver: CUDA kernel, plain qp.solve
 # tau of the kernel chain vs the plain chain: float32 sums in another order
 # through 5 chained 12-iteration solves; a wrong row moves tau by O(1) Nm

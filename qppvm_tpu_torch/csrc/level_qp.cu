@@ -27,12 +27,14 @@
 //     (Ps, Pn, K, the NS iterate X, one temporary, the scaled rows, E, E^+,
 //     vectors) in dynamic shared memory, about 50 KB at n = 44; rows padded
 //     to an odd stride so the rows a warp reads fall in different banks;
-//   * products: the threads form a 16 x 16 grid and each owns an RR x RC
-//     register tile of the output (rows ty + 16 r, columns tx + 16 c), so a
-//     step over the inner dimension costs RR + RC shared loads for RR RC
-//     FMAs; the elementwise step after a product (2I - ., |I - .|, the KKT
-//     assembly, I - .) is done in its store; a product accumulates in
-//     registers and stores after a barrier, so X <- X T overwrites X;
+//   * products (tile_mm.cuh): the threads form a 16 x 16 grid and each owns
+//     an RR x RC register tile of the output (rows ty + 16 r, columns
+//     tx + 16 c), so a step over the inner dimension costs RR + RC shared
+//     loads for RR RC FMAs; the elementwise step after a product (2I - .,
+//     |I - .|, the KKT assembly, I - .) is done in its store; a product
+//     accumulates in registers and stores after a barrier, so X <- X T
+//     overwrites X; a product covers 16 R rows, so A Pn Kinv (mi rows) runs
+//     in blocks of 16 R;
 //   * mat-vecs: row i of the output belongs to the 16 lanes with ty = i % 16,
 //     which split the columns and sum with 4 shuffles, so all 8 warps work;
 //   * ADMM: the loop's fixed matrices enter it as products, x_t = (Pn Kinv)
@@ -54,14 +56,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tile_mm.cuh"  // kSide, thread_index, delta, product, product_fit
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSide = 16;      // the thread grid of products and mat-vecs
 constexpr int kMaxR = 7;       // n <= 112; shared memory caps n at 97 first
 constexpr int kGramWarp = 12;  // largest ne whose Gram NS runs in one warp
 constexpr int kRed = 8;        // values reduced together by block_reduce
+static_assert(kThreads == kSide * kSide, "products and mat-vecs use a 16 x 16 grid");
 
 struct Params {
   const float *P, *q, *A, *l, *u, *wx, *wz, *wy, *wK, *wr;
@@ -83,27 +87,6 @@ __device__ __forceinline__ float nanmax(float a, float b) {
 __device__ __forceinline__ float clip(float x, float lo, float hi) {
   x = x < lo ? lo : x;
   return x > hi ? hi : x;
-}
-
-// The identity at entry (i, j) = (ty + 16 r, tx + 16 c) of a product's tile:
-// off the tile's diagonal (r != c) it is 0 at compile time, on it one
-// predicate (tx == ty) serves all r, so no per-entry constant is kept live
-// across the loops around a product.
-__device__ __forceinline__ float delta(int r, int c, int i, int j) {
-  return (r == c && i == j) ? 1.f : 0.f;
-}
-
-// Special registers read anew at each call: the compiler neither hoists nor
-// shares them, so the offsets a helper derives from them live only inside
-// that helper instead of in registers across the whole kernel.
-__device__ __forceinline__ int thread_index() {
-#ifdef __CUDA_ARCH__
-  int t;
-  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
-  return t;
-#else
-  return threadIdx.x;
-#endif
 }
 
 // This thread's row and column on the 16 x 16 grid.
@@ -158,72 +141,6 @@ __device__ void block_reduce(float (&v)[N], float* red, unsigned sum_mask) {
       s = (sum_mask >> k & 1) ? s + red[w * kRed + k] : nanmax(s, red[w * kRed + k]);
     v[k] = s;
   }
-}
-
-// C = op(A) op(B) for an M x N output with inner dimension K: op(A)[i][k]
-// is A[k * lda + i] with TA, else A[i * lda + k]; op(B)[k][j] is
-// B[j * ldb + k] with TB, else B[k * ldb + j]. This thread's RR x RC tile
-// (rows ty + 16 r, columns tx + 16 c) accumulates in registers; then
-// epi(r, c, i, j, value) stores each entry with i < M, j < N. Rows and
-// columns past M and N read whatever lies there (never stored; Layout keeps
-// such reads inside the block's shared memory), so the loop has no branch.
-// With in_place the block first waits until every thread
-// has read its operands, so the epilogue may overwrite A or B. Ends with a
-// barrier. Needs M <= 16 RR and N <= 16 RC.
-template <int RR, int RC, bool TA, bool TB, class Epi>
-__device__ __forceinline__ void product(int M, int N, int K, const float* A,
-                                        int lda, const float* B, int ldb,
-                                        bool in_place, Epi epi) {
-  const int tid = thread_index(), tx = tid % kSide, ty = tid / kSide;
-  // this thread's first row / column at k = 0; rows r and columns c follow
-  // 16 apart
-  const float* a0 = A + (TA ? ty : ty * lda);
-  const float* b0 = B + (TB ? tx * ldb : tx);
-  const int ra = TA ? kSide : kSide * lda, cb = TB ? kSide * ldb : kSide;
-  const int sa = TA ? lda : 1, sb = TB ? 1 : ldb;  // step per k
-  float acc[RR][RC];
-#pragma unroll
-  for (int r = 0; r < RR; ++r)
-#pragma unroll
-    for (int c = 0; c < RC; ++c) acc[r][c] = 0.f;
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    float a[RR], b[RC];
-#pragma unroll
-    for (int r = 0; r < RR; ++r) a[r] = a0[r * ra + k * sa];
-#pragma unroll
-    for (int c = 0; c < RC; ++c) b[c] = b0[c * cb + k * sb];
-#pragma unroll
-    for (int r = 0; r < RR; ++r)
-#pragma unroll
-      for (int c = 0; c < RC; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-  }
-  if (in_place) __syncthreads();
-#pragma unroll
-  for (int r = 0; r < RR; ++r)
-#pragma unroll
-    for (int c = 0; c < RC; ++c) {
-      const int i = ty + kSide * r, j = tx + kSide * c;
-      if (i < M && j < N) epi(r, c, i, j, acc[r][c]);
-    }
-  __syncthreads();
-}
-
-// product<> with the narrowest tiles that cover M x N: one 16-wide tile
-// where a side is at most 16, else R.
-template <int R, bool TA, bool TB, class Epi>
-__device__ __forceinline__ void product_fit(int M, int N, int K,
-                                            const float* A, int lda,
-                                            const float* B, int ldb,
-                                            bool in_place, Epi epi) {
-  if (M <= kSide && N <= kSide)
-    product<1, 1, TA, TB>(M, N, K, A, lda, B, ldb, in_place, epi);
-  else if (N <= kSide)
-    product<R, 1, TA, TB>(M, N, K, A, lda, B, ldb, in_place, epi);
-  else if (M <= kSide)
-    product<1, R, TA, TB>(M, N, K, A, lda, B, ldb, in_place, epi);
-  else
-    product<R, R, TA, TB>(M, N, K, A, lda, B, ldb, in_place, epi);
 }
 
 // Mat-vec on the 16 x 16 grid, no barrier: output o = ty + 16 a belongs to
@@ -450,14 +367,15 @@ struct Layout {
     ept = ne > 0 ? n * lde : 0;
     vn = kSide * tile_r(n);       // stride of the 8 n-vectors
     // A product reads whole 16-row tiles of an operand (16 R rows, or 16
-    // where it runs one-tile-wide: As with mi <= 16, Es with ne <= 12) and
-    // up to 16 R columns of its last row, the excess never stored: the
-    // regions after a matrix take such reads, and the tail pads the block's
-    // allocation where they would run past its end.
+    // where it runs one-tile-wide: As with mi <= 16, Es with ne <= 12; As
+    // in blocks of 16 R rows) and up to 16 R columns of its last row, the
+    // excess never stored: the regions after a matrix take such reads, and
+    // the tail pads the block's allocation where they would run past its end.
     const int mats = 3 * gw + 4 * nn + tt;
     const int body = mats + as + es + ept + 8 * vn + kRowFields * m + kWarps * kRed;
+    const int as_rows = mi <= kSide ? kSide : (mi + vn - 1) / vn * vn;
     const int ends[4] = {mats - tt + vn * ld + vn,                        // T
-                         mats + (mi <= kSide ? kSide : vn) * ld + vn,     // As
+                         mats + as_rows * ld + vn,                        // As
                          mats + as + (ne <= kGramWarp ? kSide : vn) * ld + vn,  // Es
                          mats + as + es + vn * lde + vn};                // E^+
     int end = 0;
@@ -793,30 +711,30 @@ __global__ void __launch_bounds__(kThreads, R <= 3 ? 4 : (R == 4 ? 2 : 1))
   // The ADMM loop's fixed matrices: x_t = Pn Kinv rhs (Kinv alone without
   // equalities) in registers, and z_t = A x_t = (As Pn Kinv) rhs in T, so
   // an iteration takes two mat-vec phases
+  const float* PK = X;
+  if (ne > 0) {
+    product<R, R, false, false>(n, n, n, Pn, ld, X, ld, false,
+                                [&](int, int, int i, int j, float s) { K[i * ld + j] = s; });
+    PK = K;
+  }
+  // one product covers VN rows: more take blocks of VN (the loop kept off
+  // the common path holds the kernel at 64 registers without spills)
+  if (mi <= VN)
+    product_fit<R, false, false>(mi, n, n, As, ld, PK, ld, false,
+                                 [&](int, int, int i, int j, float s) { T[i * ld + j] = s; });
+  else
+    for (int r0 = 0; r0 < mi; r0 += VN)
+      product<R, R, false, false>(
+          mi - r0, n, n, As + r0 * ld, ld, PK, ld, false,
+          [&](int, int, int i, int j, float s) { T[(r0 + i) * ld + j] = s; });
   float pk[R][R];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int c = 0; c < R; ++c) pk[r][c] = 0.f;
-  const float* PK = X;
-  if (ne > 0) {
-    product<R, R, false, false>(n, n, n, Pn, ld, X, ld, false,
-                                [&](int r, int c, int i, int j, float s) {
-                                  K[i * ld + j] = s;
-                                  pk[r][c] = s;
-                                });
-    PK = K;
-  } else {
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < R; ++c) {
-        const int i = grid_row() + kSide * r, j = grid_col() + kSide * c;
-        if (i < n && j < n) pk[r][c] = X[i * ld + j];
-      }
-  }
-  product_fit<R, false, false>(mi, n, n, As, ld, PK, ld, false,
-                               [&](int, int, int i, int j, float s) { T[i * ld + j] = s; });
+    for (int c = 0; c < R; ++c) {
+      const int i = grid_row() + kSide * r, j = grid_col() + kSide * c;
+      pk[r][c] = i < n && j < n ? PK[i * ld + j] : 0.f;
+    }
   PHASE(9);
 
   // ---- ADMM (single rho chunk) -------------------------------------------

@@ -104,25 +104,24 @@ def solve_level_reference(cfg: LevelQPConfig, P, q, A, l, u, wx, wz, wy, wK,
             info.dual_res, info.obj)
 
 
-_libs = {}
+_lib = None
 
 
-def library(defines=()) -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
     """The built kernel library (compiled from csrc/level_qp.cu on first
-    use); ``defines`` are macros for instrumented builds
-    (tools/profile_level_qp.py)."""
-    defines = tuple(defines)
-    if defines not in _libs:
+    use)."""
+    global _lib
+    if _lib is None:
         from qppvm_tpu_torch import build
-        lib = build.load("level_qp", defines)
+        lib = build.load("level_qp")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.level_qp_launch.argtypes = ([p] * 18 + [i] * 11 + [f] * 6
                                         + [i, p])
         lib.level_qp_launch.restype = ctypes.c_int
         lib.level_qp_smem_floats.argtypes = [i, i, i, i]
         lib.level_qp_smem_floats.restype = ctypes.c_int
-        _libs[defines] = lib
-    return _libs[defines]
+        _lib = lib
+    return _lib
 
 
 def _check_profile(cfg: LevelQPConfig, n: int, m: int) -> None:
@@ -136,8 +135,7 @@ def _check_profile(cfg: LevelQPConfig, n: int, m: int) -> None:
         raise ValueError(f"{ne} equality rows exceed the {n} variables")
 
 
-def _launch(cfg: LevelQPConfig, P, q, A, l, u, wx, wz, wy, wK, wr,
-            lib=None):
+def _launch(cfg: LevelQPConfig, P, q, A, l, u, wx, wz, wy, wK, wr):
     global launches
     B, n, _ = P.shape
     m = A.shape[1]
@@ -153,7 +151,7 @@ def _launch(cfg: LevelQPConfig, P, q, A, l, u, wx, wz, wy, wK, wr,
                              f"{shapes[name]}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    lib = library() if lib is None else lib
+    lib = library()
     h, t_ = cfg.n_eq_head, cfg.n_eq_tail
     smem = 4 * lib.level_qp_smem_floats(n, m, h, t_)
     if smem > MAX_SMEM_BYTES:

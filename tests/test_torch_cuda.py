@@ -13,7 +13,8 @@ rollout's (no z clip, no cold NS budget, 8 warm NS iterations, rho carried
 across solves); then the kernel's edges in the RT profile: n off the
 16-wide tile (37) and on 4 x 4 tiles (61), B = 1 and 37, tail equalities
 only, ne 12 and 13 (the one-warp and the block-wide Gram NS), more
-inequality rows than variables, one inequality row, one launch where half
+inequality rows than variables and than one product tile covers (48 at
+n 44), one inequality row, one launch where half
 the items take the warm branch and half the cold one, a non-finite warm
 Kinv, and an item whose cold NS diverges and takes the diagonal fallback.
 The bars are those of tests/test_pallas_qp.py:72-88 (kernel vs reference
@@ -43,6 +44,8 @@ LEVEL_CASES = [(*s, 256, "own") for s in SHAPES] + [
     (44, 30, 12, 0, 37, "own"),    # ne 12: the largest one-warp Gram NS
     (44, 30, 7, 6, 37, "own"),     # ne 13: the block-wide Gram NS
     (20, 25, 0, 0, 37, "own"),     # more inequality rows than variables
+    (44, 60, 0, 0, 37, "own"),     # more inequality rows than one product
+    (44, 66, 6, 6, 37, "own"),     # tile covers (48 at n 44)
     (44, 7, 6, 0, 37, "own"),      # one inequality row
     (44, 12, 6, 0, 37, "half"),    # warm Kinv good on even items only
     (44, 18, 6, 6, 37, "nonfinite"),   # NaN / inf in the warm Kinv

@@ -32,12 +32,19 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("profile_level_qp: no CUDA device")
+    from qppvm_tpu_torch import build
     from qppvm_tpu_torch.opt import level_qp
     from qppvm_tpu_torch.opt import level_qp_parity as parity
 
     dev = torch.device("cuda", 0)
     card = chip_smoke.card_line()
-    lib = level_qp.library(("LEVEL_QP_PHASES",))
+    # the instrumented build, bound as level_qp binds its own; it takes the
+    # plain library's place in level_qp for the clocked solves
+    plain = level_qp.library()
+    lib = build.load("level_qp", ("LEVEL_QP_PHASES",))
+    for fn in ("level_qp_launch", "level_qp_smem_floats"):
+        getattr(lib, fn).argtypes = getattr(plain, fn).argtypes
+        getattr(lib, fn).restype = getattr(plain, fn).restype
     lib.level_qp_phase_clocks.argtypes = [ctypes.c_void_p]
     lib.level_qp_phase_clocks.restype = ctypes.c_int
     clocks = (ctypes.c_longlong * 16)()
@@ -54,19 +61,20 @@ def main():
                   else chip_smoke.ROLLOUT_LEVEL)
             cfg = level_qp.LevelQPConfig(n_eq_head=h, n_eq_tail=t, **kw)
             prob = parity.random_problems(B, n, m, h, t, dev, seed=0)
-            state = level_qp._launch(cfg, *prob,
-                                     *parity.zero_state(B, n, m, dev),
-                                     lib=lib)[:5]
+            state = level_qp.solve_level(
+                cfg, *prob, *parity.zero_state(B, n, m, dev))[:5]
             runs = []
+            level_qp._lib = lib
             for _ in range(REPS):
                 read_clocks()
-                level_qp._launch(cfg, *prob, *state, lib=lib)
+                level_qp.solve_level(cfg, *prob, *state)
                 torch.cuda.synchronize()
                 c, last, phase = read_clocks(), None, []
                 for k in range(12):   # a phase not run leaves its clock 0
                     phase.append(c[k] - last if c[k] and last else 0)
                     last = c[k] or last
                 runs.append(phase[1:])
+            level_qp._lib = plain
             cyc = [statistics.median(r[k] for r in runs) for k in range(11)]
             total = sum(cyc)
             ms = chip_smoke.cuda_time_ms(
