@@ -1,117 +1,198 @@
-// Batched SPD inverse by Newton-Schulz, one thread block per matrix (CUDA,
-// sm_90a).
+// Batched SPD inverse by Newton-Schulz on Hopper's tensor cores, one thread
+// block per matrix (CUDA, sm_90a).
 //
 // Replaces qppvm_tpu/opt/pallas_linalg.py::_ns_kernel, the TPU kernel that
 // pins K and the iterate X in VMEM for the whole iteration loop. It computes
 // exactly linalg.spd_inverse_ns(K, iters, refine=0):
 //   d = rsqrt(max(diag K, 1e-30)), Ks = d K d^T,
-//   X0 = I / max(max column abs-sum of Ks, 1e-30),
+//   X0 = I / max(max column abs-sum of Ks, 1e-30)   (NaN propagates),
 //   iters x  X <- X (2I - Ks X),   out = d X d^T.
 //
 // What bounds it on an H100: 2 * iters dependent dense n x n products per
-// matrix, 4 * iters * n^3 flops against 8 n^2 bytes read and written, so it
-// is compute-bound (at B 1024, n 64, 26 iterations: 27.9 GFLOP, 0.417 ms at
-// the 67 TFLOP/s float32 peak, against 0.010 ms for its 33.5 MB). The
-// design follows from that:
-//   * one block per matrix (grid = B); Ks, X and one temporary stay in
-//     dynamic shared memory for the whole loop (3 n^2 floats: 48 KB at
-//     n 64, 23 KB at n 44), so device memory is read once and written once;
-//   * 256 threads as a 16 x 16 grid; each thread owns an R x R register tile
-//     of every product (R = ceil(n / 16), rows ty + 16 r, columns tx + 16 c),
-//     so each step over the inner dimension costs 2R shared loads for R^2
-//     FMAs; rows are padded to an odd stride, so the two rows a warp reads
-//     fall in different banks;
-//   * a product accumulates in registers and stores after a barrier, so
-//     X <- X T can overwrite X in place and three buffers suffice;
-//   * at R <= 4 (n <= 64) the kernel is held to 64 registers a thread, so
-//     four blocks fit on an SM by registers and by shared memory;
-//   * the diagonal prescale and the 1-norm are in-block reductions.
-// Not done yet (later work): tensor-core (wgmma) products, several matrices
-// per block at small n, TMA loads.
+// matrix, 4 * iters * n^3 flops against 8 n^2 bytes read and written. At
+// B 1024, n 64, 26 iterations that is 27.9 GFLOP against 33.5 MB: 0.010 ms
+// of memory, 0.417 ms of float32 products on the CUDA cores (67 TFLOP/s),
+// 0.169 ms as error-compensated 3xTF32 on the tensor cores (3 x 27.9 GFLOP
+// at 495 TFLOP/s). It is bound by the tensor cores' rate; the design:
+//   * every product is 3xTF32 on mma.sync.m16n8k8 (inline PTX, float32
+//     accumulators in registers): x = hi + lo with hi = tf32(x) and
+//     lo = tf32(x - hi) (cvt.rna; the subtraction is exact), and
+//     A B ~ A_lo B_hi + A_hi B_lo + A_hi B_hi, the two small terms first into
+//     the same accumulator. The dropped lo lo term is 2^-22 relative. No
+//     iteration runs in plain TF32 (2^-11): NS then stalls far from the
+//     float32 inverse;
+//   * operands stay float32 in shared memory and are split at load: storing
+//     hi and lo would double shared memory (two blocks per SM at n 64 instead
+//     of four) to save two cvt and one add per loaded value;
+//   * one block of 4 warps per matrix; Ks, X and T stay in dynamic shared
+//     memory for the whole loop, so device memory is read once and written
+//     once. Each warp owns whole 16-row strips of a product: at n 64 one
+//     16 x 64 strip, 8 mma tiles, 32 accumulators. X <- X T runs in place:
+//     the rows of X a strip reads as A are its own, read by its warp only,
+//     which stores them after __syncwarp. Two block barriers an iteration;
+//   * up to n 128 each buffer is padded with zeros to whole 16-row tiles (a
+//     zero adds exactly 0 to a product, and no padded entry is ever stored)
+//     and swizzled: entry (r, c) lies at r * ld + (c ^ f(r)), ld a multiple
+//     of 32, f(r) = ((r & 3) << 3) | (r & 4). A warp's A-fragment load (row
+//     g, column t) and its B-fragment load (row t, column g) then each hit
+//     32 distinct banks, though X is read as A in one product and as B in
+//     the other (a padded stride serves only one of the two, and storing X
+//     twice would cost a fourth buffer). Above n 128 the padded buffers do
+//     not fit in 227 KB, so they are n x n, loads outside the matrix read
+//     zero, and bank conflicts are accepted;
+//   * __launch_bounds__(128, 4) at n <= 64: four blocks per SM by registers
+//     and by shared memory (49,424 bytes a block at n 64).
+// Next step: wgmma (warpgroup products from K-major swizzled shared memory)
+// with the operands split once, at the epilogue.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSide = 16;  // the thread grid is kSide x kSide
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxR = 9;   // n <= 144; shared memory caps n at 139 first
+constexpr int kMaxNT = 18;     // 8-column tiles a strip holds: n <= 144
+constexpr int kPadMaxN = 128;  // largest n with padded, swizzled buffers
 
-__host__ __device__ constexpr int stride(int n) { return n | 1; }
+__host__ __device__ constexpr int round_up(int a, int b) {
+  return (a + b - 1) / b * b;
+}
+
+// Rows allocated and row stride of each of the three buffers.
+__host__ __device__ inline int buf_rows(int n) {
+  return n <= kPadMaxN ? round_up(n, 16) : n;
+}
+__host__ __device__ inline int buf_ld(int n) {
+  return n <= kPadMaxN ? round_up(n, 32) : n;
+}
+
+// Offset of entry (r, c): swizzled in a padded buffer, plain otherwise.
+template <bool kPad>
+__device__ __forceinline__ int at(int r, int c, int ld) {
+  return r * ld + (kPad ? c ^ (((r & 3) << 3) | (r & 4)) : c);
+}
+
+template <bool kPad>
+__device__ __forceinline__ float load(const float* S, int r, int c, int n,
+                                      int ld) {
+  if (kPad) return S[at<true>(r, c, ld)];
+  return (r < n && c < n) ? S[r * ld + c] : 0.f;
+}
 
 // max that propagates NaN, like jnp.max / torch.amax
 __device__ __forceinline__ float nanmax(float a, float b) {
   return (a > b || isnan(a)) ? a : b;
 }
 
-// acc = A B for n x n row-major shared matrices of row stride ld; this
-// thread's R x R tile.
-template <int R>
-__device__ __forceinline__ void tile_product(float (&acc)[R][R], const float* A,
-                                             const float* B, int n, int ld) {
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
+// max(x, lo) that keeps a NaN x, like torch.clamp(x, min=lo)
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return x < lo ? lo : x;
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to 2^-22 relative, both TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d += a b on one 16 x 8 x 8 tile; fragments as the PTX ISA lays them out
+// for lane l, g = l >> 2, t = l & 3: a = (g, t), (g+8, t), (g, t+4),
+// (g+8, t+4); b = (k t, col g), (k t+4, col g); d = (g, 2t), (g, 2t+1),
+// (g+8, 2t), (g+8, 2t+1).
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[j] = rows r0 .. r0 + 15, columns 8j .. 8j + 7 of A B (n x n), for
+// every j with 8j < n, in 3xTF32. Called by a whole warp.
+template <int NT, bool kPad>
+__device__ __forceinline__ void strip_product(float (&acc)[NT][4],
+                                              const float* A, const float* B,
+                                              int r0, int n, int ld) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int c = 0; c < R; ++c) acc[r][c] = 0.f;
-  for (int k = 0; k < n; ++k) {
-    float a[R], b[R];
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int k0 = 0; k0 < n; k0 += 8) {
+    uint32_t ah[4], al[4];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = ty + kSide * r, j = tx + kSide * r;
-      a[r] = i < n ? A[i * ld + k] : 0.f;
-      b[r] = j < n ? B[k * ld + j] : 0.f;
+    for (int e = 0; e < 4; ++e)
+      split(load<kPad>(A, r0 + g + 8 * (e & 1), k0 + t + 4 * (e >> 1), n, ld),
+            ah[e], al[e]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (8 * j >= n) break;
+      uint32_t bh[2], bl[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        split(load<kPad>(B, k0 + t + 4 * e, 8 * j + g, n, ld), bh[e], bl[e]);
+      mma(acc[j], al, bh);
+      mma(acc[j], ah, bl);
+      mma(acc[j], ah, bh);
     }
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < R; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
   }
 }
 
-// C = A B, or C = 2I - A B with kTwoIMinus. C may alias A or B: every
-// thread finishes reading before any thread writes.
-template <int R, bool kTwoIMinus>
-__device__ void product(float* C, const float* A, const float* B, int n,
-                        int ld) {
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  float acc[R][R];
-  tile_product<R>(acc, A, B, n, ld);
-  __syncthreads();
+// Stores the strip of rows r0 .. r0 + 15 from acc: C = acc, or C = 2I - acc
+// with kTwoIMinus. Entries outside the matrix are not stored.
+template <int NT, bool kPad, bool kTwoIMinus>
+__device__ __forceinline__ void store_strip(float* C, const float (&acc)[NT][4],
+                                            int r0, int n, int ld) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int j = 0; j < NT; ++j) {
+    // only the two tiles of a strip that meet the diagonal test for it
+    const bool diag = kTwoIMinus && (j >> 1) == (r0 >> 4);
 #pragma unroll
-    for (int c = 0; c < R; ++c) {
-      const int i = ty + kSide * r, j = tx + kSide * c;
-      if (i < n && j < n)
-        C[i * ld + j] = kTwoIMinus ? (i == j ? 2.f : 0.f) - acc[r][c]
-                                   : acc[r][c];
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+      if (i < n && c < n) {
+        float v = acc[j][e];
+        if (kTwoIMinus) v = (diag && i == c ? 2.f : 0.f) - v;
+        C[at<kPad>(i, c, ld)] = v;
+      }
     }
-  __syncthreads();
+  }
 }
 
-template <int R>
-__global__ void __launch_bounds__(kThreads, R <= 4 ? 4 : 1)
+template <int NT>
+__global__ void __launch_bounds__(kThreads, NT <= 8 ? 4 : 1)
     ns_inverse_kernel(const float* __restrict__ K_all, float* __restrict__ out,
                       int n, int iters) {
+  constexpr bool kPad = 8 * NT <= kPadMaxN;
   extern __shared__ float sm[];
-  const int ld = stride(n);
+  const int ld = buf_ld(n), size = buf_rows(n) * ld;
   float* Ks = sm;
-  float* X = Ks + n * ld;
-  float* T = X + n * ld;
-  float* d = T + n * ld;
+  float* X = Ks + size;
+  float* T = X + size;
+  float* d = T + size;
   float* red = d + n;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int strips = round_up(n, 16) / 16;
   const size_t b = blockIdx.x;
   const float* K = K_all + b * n * n;
 
-  for (int i = tid; i < n; i += kThreads) d[i] = rsqrtf(fmaxf(K[i * n + i], 1e-30f));
+  if (kPad)
+    for (int idx = tid; idx < 3 * size; idx += kThreads) sm[idx] = 0.f;
+  for (int i = tid; i < n; i += kThreads)
+    d[i] = rsqrtf(clamp_min(K[i * n + i], 1e-30f));
   __syncthreads();
   for (int idx = tid; idx < n * n; idx += kThreads) {
     const int i = idx / n, j = idx - i * n;
-    Ks[i * ld + j] = d[i] * K[idx] * d[j];
+    Ks[at<kPad>(i, j, ld)] = d[i] * K[idx] * d[j];
   }
   __syncthreads();
 
@@ -119,41 +200,53 @@ __global__ void __launch_bounds__(kThreads, R <= 4 ? 4 : 1)
   float cs = -INFINITY;
   for (int j = tid; j < n; j += kThreads) {
     float s = 0.f;
-    for (int i = 0; i < n; ++i) s += fabsf(Ks[i * ld + j]);
+    for (int i = 0; i < n; ++i) s += fabsf(Ks[at<kPad>(i, j, ld)]);
     cs = nanmax(cs, s);
   }
-  for (int o = 16; o > 0; o >>= 1) cs = nanmax(cs, __shfl_xor_sync(0xffffffffu, cs, o));
-  if ((tid & 31) == 0) red[tid >> 5] = cs;
+  for (int o = 16; o > 0; o >>= 1)
+    cs = nanmax(cs, __shfl_xor_sync(0xffffffffu, cs, o));
+  if ((tid & 31) == 0) red[warp] = cs;
   __syncthreads();
   float norm1 = red[0];
   for (int w = 1; w < kWarps; ++w) norm1 = nanmax(norm1, red[w]);
-  const float x0 = 1.f / fmaxf(norm1, 1e-30f);
+  const float x0 = 1.f / clamp_min(norm1, 1e-30f);
   for (int idx = tid; idx < n * n; idx += kThreads) {
     const int i = idx / n, j = idx - i * n;
-    X[i * ld + j] = i == j ? x0 : 0.f;
+    X[at<kPad>(i, j, ld)] = (i == j ? 1.f : 0.f) * x0;
   }
   __syncthreads();
 
   for (int it = 0; it < iters; ++it) {
-    product<R, true>(T, Ks, X, n, ld);   // T = 2I - Ks X
-    product<R, false>(X, X, T, n, ld);   // X = X T
+    for (int s = warp; s < strips; s += kWarps) {   // T = 2I - Ks X
+      float acc[NT][4];
+      strip_product<NT, kPad>(acc, Ks, X, 16 * s, n, ld);
+      store_strip<NT, kPad, true>(T, acc, 16 * s, n, ld);
+    }
+    __syncthreads();
+    for (int s = warp; s < strips; s += kWarps) {   // X = X T, in place
+      float acc[NT][4];
+      strip_product<NT, kPad>(acc, X, T, 16 * s, n, ld);
+      __syncwarp();
+      store_strip<NT, kPad, false>(X, acc, 16 * s, n, ld);
+    }
+    __syncthreads();
   }
 
   float* o = out + b * n * n;
   for (int idx = tid; idx < n * n; idx += kThreads) {
     const int i = idx / n, j = idx - i * n;
-    o[idx] = d[i] * X[i * ld + j] * d[j];
+    o[idx] = d[i] * X[at<kPad>(i, j, ld)] * d[j];
   }
 }
 
-template <int R>
+template <int NT>
 int launch(const float* K, float* out, int B, int n, int iters, size_t smem,
            cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      ns_inverse_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ns_inverse_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ns_inverse_kernel<R><<<B, kThreads, smem, stream>>>(K, out, n, iters);
+  ns_inverse_kernel<NT><<<B, kThreads, smem, stream>>>(K, out, n, iters);
   return (int)cudaGetLastError();
 }
 
@@ -161,29 +254,29 @@ int launch(const float* K, float* out, int B, int n, int iters, size_t smem,
 
 // Dynamic shared memory one block needs for an n x n matrix.
 extern "C" int ns_inverse_smem_bytes(int n) {
-  return (int)sizeof(float) * (3 * n * stride(n) + n + kWarps);
+  return (int)sizeof(float) * (3 * buf_rows(n) * buf_ld(n) + n + kWarps);
 }
 
-// Largest n the register tiles cover.
-extern "C" int ns_inverse_max_n() { return kSide * kMaxR; }
+// Largest n a strip's accumulators cover.
+extern "C" int ns_inverse_max_n() { return 8 * kMaxNT; }
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
 // K and out: B contiguous row-major n x n float32 matrices.
 extern "C" int ns_inverse_launch(const float* K, float* out, int B, int n,
                                  int iters, void* stream) {
   if (B == 0) return 0;
-  if (n < 1 || n > kSide * kMaxR) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > 8 * kMaxNT) return (int)cudaErrorInvalidValue;
   const size_t smem = ns_inverse_smem_bytes(n);
   cudaStream_t s = (cudaStream_t)stream;
-  switch ((n + kSide - 1) / kSide) {
-    case 1: return launch<1>(K, out, B, n, iters, smem, s);
-    case 2: return launch<2>(K, out, B, n, iters, smem, s);
-    case 3: return launch<3>(K, out, B, n, iters, smem, s);
-    case 4: return launch<4>(K, out, B, n, iters, smem, s);
-    case 5: return launch<5>(K, out, B, n, iters, smem, s);
-    case 6: return launch<6>(K, out, B, n, iters, smem, s);
-    case 7: return launch<7>(K, out, B, n, iters, smem, s);
-    case 8: return launch<8>(K, out, B, n, iters, smem, s);
-    default: return launch<9>(K, out, B, n, iters, smem, s);
+  switch (round_up(n, 16) / 16) {
+    case 1: return launch<2>(K, out, B, n, iters, smem, s);
+    case 2: return launch<4>(K, out, B, n, iters, smem, s);
+    case 3: return launch<6>(K, out, B, n, iters, smem, s);
+    case 4: return launch<8>(K, out, B, n, iters, smem, s);
+    case 5: return launch<10>(K, out, B, n, iters, smem, s);
+    case 6: return launch<12>(K, out, B, n, iters, smem, s);
+    case 7: return launch<14>(K, out, B, n, iters, smem, s);
+    case 8: return launch<16>(K, out, B, n, iters, smem, s);
+    default: return launch<18>(K, out, B, n, iters, smem, s);
   }
 }

@@ -13,7 +13,7 @@ import torch
 
 from qppvm_tpu_torch.model import kinematics, spatial
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
-from qppvm_tpu_torch.opt import linalg
+from qppvm_tpu_torch.opt import ns_inverse
 
 
 def _base_gravity_acc(model: RobotModel, state: RobotState):
@@ -122,9 +122,10 @@ def forward_dynamics(model: RobotModel, state: RobotState, tau,
     """udot = B^{-1} (S^T tau + tau_ext - h), (B, nv); ``tau`` (B, nj)
     actuated torques, ``ext_wrenches`` as for ``rnea``.
 
-    ``method="ns"``: the Newton-Schulz inverse of B + 1e-9 I (22 + 2
-    iterations, plain PyTorch, as the reference leaves it to XLA) applied
-    with two refinement steps against that matrix; ``"chol"``: an exact
+    ``method="ns"``: the Newton-Schulz inverse of B + 1e-9 I (the 22 + 2
+    iterations of ``linalg.spd_inverse_ns``, through ``ns_inverse``: the
+    CUDA kernel on the card, the plain version on the CPU) applied with two
+    refinement steps against that matrix; ``"chol"``: an exact
     Cholesky solve. ``B``: the mass matrix at ``state`` when the caller has
     it; ``binv``: an approximate inverse of it (a warm inverse carried along
     a rollout), which replaces the cold NS inversion."""
@@ -145,7 +146,7 @@ def forward_dynamics(model: RobotModel, state: RobotState, tau,
         return torch.cholesky_solve(rhs[..., None],
                                     torch.linalg.cholesky(Breg))[..., 0]
     if binv is None:
-        binv = linalg.spd_inverse_ns(Breg, iters=22, refine=2)
+        binv = ns_inverse.ns_inverse(Breg, iters=24)
     mv = lambda M, v: (M @ v[..., None])[..., 0]  # noqa: E731
     x = mv(binv, rhs)
     for _ in range(2):   # refinement against the true B

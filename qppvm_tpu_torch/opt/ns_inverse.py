@@ -5,7 +5,8 @@
 arithmetic of ``linalg.spd_inverse_ns(K, iters, refine=0)``: Jacobi
 prescale, 1-norm start, ``iters`` steps X <- X (2I - Ks X). On a CUDA tensor
 it launches ``csrc/ns_inverse.cu`` (one thread block per matrix, Ks, X and
-one temporary in shared memory) or raises; on a CPU tensor it runs
+one temporary in shared memory, 3xTF32 products on the tensor cores) or
+raises; on a CPU tensor it runs
 ``ns_inverse_reference``, the same function in plain PyTorch.
 """
 from __future__ import annotations

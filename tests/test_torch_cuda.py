@@ -21,9 +21,13 @@ The bars are those of tests/test_pallas_qp.py:72-88 (kernel vs reference
 solver), except for rho_scale (``level_qp_parity.check_rho_scale`` says
 why and how).
 
-NS-inverse kernel: SPD batches K = M M^T + 0.5 I at n 16 / 44 / 64, B = 1
-included, to the bars of tests/test_pallas_linalg.py: atol 2e-4 + rtol
-2e-3 against the plain version, max |K X - I| < 5e-3.
+NS-inverse kernel (3xTF32 on the tensor cores): SPD batches K = M M^T +
+0.5 I at n 1 to 139 (inside one 16 x 8 mma tile, on and off the tile
+edges, the humanoid's 38, the 64 of bench_pallas.py, the unpadded layout
+above 128) and B 1 / 37, to the bars of tests/test_pallas_linalg.py: atol
+2e-4 + rtol 2e-3 against the plain version, max |K X - I| < 5e-3; a batch
+with non-finite items, which stay non-finite where the plain version is
+without touching the others.
 """
 import pytest
 import torch
@@ -118,12 +122,27 @@ def test_kernel_matches_plain_version_at_the_rollout_profile(device, n, m, h,
         state = out[:5]
 
 
-@pytest.mark.parametrize("n,iters", [(16, 24), (44, 24), (64, 26)])
+def _ns_batch(device, B, n, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    M = torch.randn(B, n, n, generator=g, device=device)
+    return M @ M.transpose(1, 2) + 0.5 * torch.eye(n, device=device)
+
+
+def _ns_passes(K, X, ref):
+    """Per item: within the kernel's bars of the plain version."""
+    n = K.shape[-1]
+    close = ((X - ref).abs() <= 2e-4 + 2e-3 * ref.abs()).flatten(1).all(1)
+    resid = (K @ X - torch.eye(n, device=K.device)).abs().flatten(1)
+    return close & (resid.amax(1) < 5e-3)
+
+
+@pytest.mark.parametrize("n,iters", [(1, 26), (7, 26), (8, 26), (16, 24),
+                                     (38, 24), (40, 26), (44, 24), (63, 26),
+                                     (64, 26), (65, 26), (100, 26),
+                                     (139, 26)])
 @pytest.mark.parametrize("B", [1, 37])
 def test_ns_inverse_matches_plain_version(device, n, iters, B):
-    g = torch.Generator(device=device).manual_seed(n + B)
-    M = torch.randn(B, n, n, generator=g, device=device)
-    K = M @ M.transpose(1, 2) + 0.5 * torch.eye(n, device=device)
+    K = _ns_batch(device, B, n, seed=n + B)
     before = ns_inverse.launches
     X = ns_inverse.ns_inverse(K, iters)
     torch.cuda.synchronize()
@@ -132,6 +151,22 @@ def test_ns_inverse_matches_plain_version(device, n, iters, B):
     assert bool(torch.all((X - ref).abs() <= 2e-4 + 2e-3 * ref.abs()))
     eye = torch.eye(n, device=device)
     assert float((K @ X - eye).abs().max()) < 5e-3
+
+
+@pytest.mark.parametrize("n", [38, 64])
+def test_ns_inverse_keeps_non_finite_items_apart(device, n):
+    """Item 0 has a NaN off the diagonal, item 2 an inf on it: each is
+    non-finite wherever the plain version is, and the others pass."""
+    K = _ns_batch(device, 5, n, seed=3)
+    K[0, 0, 1] = float("nan")
+    K[2, 1, 1] = float("inf")
+    X = ns_inverse.ns_inverse(K, 26)
+    torch.cuda.synchronize()
+    ref = ns_inverse.ns_inverse_reference(K, 26)
+    for i in (0, 2):
+        bad = ~torch.isfinite(ref[i])
+        assert bool(bad.any()) and bool((~torch.isfinite(X[i]))[bad].all())
+    assert _ns_passes(K, X, ref)[[1, 3, 4]].all()
 
 
 def test_ns_inverse_rejects_bad_inputs(device):

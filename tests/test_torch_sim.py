@@ -7,6 +7,10 @@ qppvm_tpu, on the humanoid.
   bench_rt_loop.py, points in contact and airborne, anchors sticking and
   sliding; ``stop_torques`` beyond both joint limits; ``_sim_step``; and
   ``SimRobot`` sense / command / move over two control periods;
+- the plant's cold mass-matrix inverse and the MPC rollout's start inverse
+  go through ``ns_inverse.ns_inverse(Breg, iters=24)`` (the NS kernel on
+  the card), which on CPU tensors is ``linalg.spd_inverse_ns(Breg, 22, 2)``
+  to the bit;
 - the first 3 ticks of the closed loop (``runtime/rt_loop.py``) against the
   same loop in JAX (bench_rt_loop.py's tick), both from the reference's
   on_start, so the loop is held alone.
@@ -41,7 +45,8 @@ from qppvm_tpu.plugins.force_acc import ForceAccPlugin as JForceAcc
 from qppvm_tpu.runtime import robot_interface as jri
 from qppvm_tpu.stack.autostack import AutoStack as JAutoStack
 from qppvm_tpu_torch.model import convert, dynamics, spatial, zoo
-from qppvm_tpu_torch.opt import linalg
+from qppvm_tpu_torch.mpc import rollout
+from qppvm_tpu_torch.opt import linalg, ns_inverse
 from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
 from qppvm_tpu_torch.runtime import robot_interface as ri
 from qppvm_tpu_torch.runtime import rt_loop
@@ -151,6 +156,50 @@ def test_forward_dynamics_and_integrate_match_reference(models, method,
         tm, ts, torch.tensor(udot_ref, dtype=torch.float32), 1e-3)
     for k in convert.STATE_FIELDS:
         _close(getattr(st, k), getattr(st_ref, k))
+
+
+@pytest.fixture
+def ns_calls(monkeypatch):
+    """The ``iters`` of every ``ns_inverse.ns_inverse`` call."""
+    calls, real = [], ns_inverse.ns_inverse
+
+    def spy(K, iters=26):
+        calls.append(iters)
+        return real(K, iters)
+
+    monkeypatch.setattr(ns_inverse, "ns_inverse", spy)
+    return calls
+
+
+def test_forward_dynamics_inverts_through_the_ns_kernel(models, ns_calls):
+    jm, tm = models
+    ts = _tstate(_near_ground_states(jm, seed=1))
+    tau = torch.tensor(np.random.default_rng(2).normal(size=(B, tm.nj)),
+                       dtype=torch.float32)
+    udot = dynamics.forward_dynamics(tm, ts, tau)
+    assert ns_calls == [24]
+    Bm = dynamics.mass_matrix(tm, ts)
+    Breg = Bm + 1e-9 * torch.eye(tm.nv)
+    binv = linalg.spd_inverse_ns(Breg, iters=22, refine=2)
+    assert torch.equal(ns_inverse.ns_inverse(Breg, iters=24), binv)
+    assert torch.equal(udot, dynamics.forward_dynamics(tm, ts, tau, B=Bm,
+                                                       binv=binv))
+
+
+def test_rollout_start_inverse_goes_through_the_ns_kernel(models, ns_calls):
+    _, tm = models
+    plugin = ForceAccPlugin(tm, contact_links=CONTACTS, waist_link="pelvis",
+                            iters=12)
+    roll = rollout.make_rollout_fn(plugin, rollout.RolloutConfig(),
+                                   rollout.default_cost,
+                                   contact_offsets=PATCH)
+    st = rollout.standing_state(tm, CONTACTS, batch=2)
+    carry = roll.init_carry(st, {"waist_task": {"p": torch.zeros(2, 3)}},
+                            None)
+    assert ns_calls == [24]
+    B0 = dynamics.mass_matrix(tm, st) + 1e-9 * torch.eye(tm.nv)
+    assert torch.equal(carry[4], linalg.spd_inverse_ns(B0, iters=22,
+                                                       refine=2))
 
 
 @pytest.fixture(scope="module")
