@@ -115,8 +115,10 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// acc[j] = rows r0 .. r0 + 15, columns 8j .. 8j + 7 of A B (n x n), for
-// every j with 8j < n, in 3xTF32. Called by a whole warp.
+// acc[j] = rows r0 .. r0 + 15, columns 8j .. 8j + 7 of A B (n x n), in
+// 3xTF32. Called by a whole warp. No test inside the loops: a tile past n
+// multiplies zeros (padding, or masked loads above kPadMaxN), and a branch
+// between tiles would serialise their loads and mma chains.
 template <int NT, bool kPad>
 __device__ __forceinline__ void strip_product(float (&acc)[NT][4],
                                               const float* A, const float* B,
@@ -126,6 +128,7 @@ __device__ __forceinline__ void strip_product(float (&acc)[NT][4],
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 2   // the next k-step's loads overlap this one's mma chains
   for (int k0 = 0; k0 < n; k0 += 8) {
     uint32_t ah[4], al[4];
 #pragma unroll
@@ -134,7 +137,6 @@ __device__ __forceinline__ void strip_product(float (&acc)[NT][4],
             ah[e], al[e]);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      if (8 * j >= n) break;
       uint32_t bh[2], bl[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e)
