@@ -42,8 +42,9 @@ Phases, each fatal on failure:
 6. one sampling-MPC plan step (mpc/humanoid_plan.py: 512 samples, horizon
    8, rollouts through the level kernel): one untimed plan, 3 timed ones;
    2 x horizon level launches and 1 NS launch (the start inverse) per
-   plan, 0 fallbacks, solver_fail_frac 0, finite cost; then 3 more draws, each rolled out through the kernel and through
-   the plain level solver on the same samples, must agree sample by sample
+   plan, 0 fallbacks, solver_fail_frac 0, finite cost; then 3 more draws,
+   each rolled out through the kernel and through the plain level solver
+   on the same samples, must agree sample by sample
    (each rollout's cost, the failure flags) and in the MPPI plan U_new.
    Prints QP solves/s.
 
@@ -97,8 +98,8 @@ MPC_DRAWS = 3
 # one H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores,
 # dense TF32 on them, HBM3
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES_S = 67e12, 495e12, 3.35e12
-# the ISSUE's bars on the NS kernel's time (ms) at each phase 4 shape;
-# printed, not gated: a slow right kernel stays
+# bars on the NS kernel's time (ms) at each phase 4 shape, printed and not
+# gated: a slow kernel that is right stays
 NS_BARS_MS = (1.0, 0.107, 0.60)
 # one plant step's udot, NS kernel vs plain inverse: float32 rounding through
 # a mass matrix of condition ~1e4 after two refinement steps (the bar of
@@ -318,8 +319,9 @@ def phase_ns_inverse(torch, dev, card):
         bounds[label] = min(f32, tc)
         print(f"[{card}] ns_inverse {label}: kernel {k_ms:.4f} ms on the "
               f"device ({call_ms:.4f} ms a call with the wrapper's host "
-              f"time), plain PyTorch {times[label][1]:.4f} ms, torch.linalg.inv "
-              f"{lib:.4f} ms (kernel / inv {k_ms / lib:.3f}); bound "
+              f"time), plain PyTorch {times[label][1]:.4f} ms, "
+              f"torch.linalg.inv {lib:.4f} ms (kernel / inv "
+              f"{k_ms / lib:.3f}); bound "
               f"float32 {f32[0]:.4g} ms, 3xTF32 {tc[0]:.4g} ms "
               f"({bounds[label][1]}), kernel at "
               f"{100 * bounds[label][0] / k_ms:.3g}% of the lesser; bar "
@@ -339,8 +341,8 @@ def phase_ns_inverse(torch, dev, card):
 
 def check_plant_step(torch, nsi, loop, res):
     """One plant step's udot at the loop's last state and torque, its mass
-    matrix inverted by the NS kernel (one launch) and by the plain
-    version passed in as ``binv``. Returns the max abs difference."""
+    matrix inverted by the NS kernel (one launch), held to the same step
+    with the plain version's inverse passed in as ``binv``."""
     from qppvm_tpu_torch.model import dynamics, kinematics
     from qppvm_tpu_torch.runtime import robot_interface as ri
 

@@ -41,9 +41,16 @@
 //     not fit in 227 KB, so they are n x n, loads outside the matrix read
 //     zero, and bank conflicts are accepted;
 //   * __launch_bounds__(128, 4) at n <= 64: four blocks per SM by registers
-//     and by shared memory (49,424 bytes a block at n 64).
-// Next step: wgmma (warpgroup products from K-major swizzled shared memory)
-// with the operands split once, at the epilogue.
+//     and by shared memory (49,424 bytes a block at n 64);
+//   * the tile loop has no branch and the k-loop is unrolled by two, so a
+//     warp keeps eight independent mma chains and the next loads in flight:
+//     at B 1 one matrix has only 3 or 4 warps, and latency is what bounds it.
+// What bounds it now, on an H100 at B 1024, n 64: about a fifth of the
+// 3xTF32 bound (PERF.md). mma.sync issues a warp's 16 x 8 x 8 tiles one at a
+// time, and every shared-memory value costs three instructions to split,
+// four times over for B (each warp splits all of it). Next step: wgmma
+// (warpgroup products from K-major swizzled shared memory) with the operands
+// split once, at the epilogue.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -151,12 +158,13 @@ __device__ __forceinline__ void strip_product(float (&acc)[NT][4],
 // Stores the strip of rows r0 .. r0 + 15 from acc: C = acc, or C = 2I - acc
 // with kTwoIMinus. Entries outside the matrix are not stored.
 template <int NT, bool kPad, bool kTwoIMinus>
-__device__ __forceinline__ void store_strip(float* C, const float (&acc)[NT][4],
-                                            int r0, int n, int ld) {
+__device__ __forceinline__ void store_strip(float* C,
+                                            const float (&acc)[NT][4], int r0,
+                                            int n, int ld) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
-    // only the two tiles of a strip that meet the diagonal test for it
+    // only the two tiles of a strip that hold diagonal entries test for them
     const bool diag = kTwoIMinus && (j >> 1) == (r0 >> 4);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
