@@ -15,7 +15,12 @@ Phases, each fatal on failure:
    profile (no z clip, no cold budget, 8 warm NS iterations, rho carried)
    at B = 512, cold then two warm solves, timed warm. Kernel times are
    device times (the host queues every timed launch ahead, LEAD_CYCLES);
-   at B = 1 the time of a call with the wrapper's host work is printed too;
+   at B = 1 the time of a call with the wrapper's host work is printed too.
+   Then the ForceAccExample robots' level shapes (ROBOT_SHAPES: the
+   quadruped's n 34, the centaur's n 49 with friction cones, an n 49 level
+   with 74 inequality rows) at B = 1024 and B = 1, cold then warm, each
+   timed beside its bound. The kernels line's max_abs_err
+   is the largest gap over ERR_OUTPUTS; each phase's line prints them all;
 3. drive the main path: ForceAccPlugin on the humanoid with bench.py's RT
    profile, on_start, then 5 chained batched ticks at B = 1024 (q perturbed
    by 0.01 N(0, 1)); gate on zero solver failures and finite torques,
@@ -24,7 +29,8 @@ Phases, each fatal on failure:
    time the tick with either;
 4. drive the NS-inverse path (ns_inverse, bench_pallas.py's B 1024, n 64,
    26 iterations on K = M M^T + 0.5 I) and the simulator's shape (the
-   humanoid's regularized mass matrix, 24 iterations, B 1 and 1024); hold
+   humanoid's regularized mass matrix, 24 iterations, B 1 and 1024; the
+   quadruped's, n 22, B 1); hold
    the kernel to its plain version (atol 2e-4, rtol 2e-3) and to
    max |K X - I| < 5e-3; time the kernel (on the device, and a call with
    the wrapper's host time), the plain version and torch.linalg.inv, and
@@ -46,7 +52,22 @@ Phases, each fatal on failure:
    each rolled out through the kernel and through the plain level solver
    on the same samples, must agree sample by sample
    (each rollout's cost, the failure flags) and in the MPPI plan U_new.
-   Prints QP solves/s.
+   Prints QP solves/s;
+7. the centaur's batched tick: ForceAccPlugin on zoo.centaur() with feet
+   foot_fl/fr/hr/hl and friction cones (mu 0.7), the RT profile, on_start,
+   then 5 chained ticks at B = 1024 (q perturbed by 0.01 N(0, 1)); gated
+   as phase 3, plus every wrench inside its cone and fz >= 10 within
+   1e-3 N; tau held to the plain chain's; both timed;
+8. the reference's ForceAccExample in closed loop: the quadruped with the
+   default stack (3-force wrench box), the RT profile, SimRobot at dt 1 ms
+   in 4 substeps (runtime/rt_loop.py's ClosedLoop pieces), 400 ticks
+   through the level kernel at B = 1 with the squat reference (0.05 m)
+   from tick 200; gated as tests/test_force_acc_e2e.py: no solver
+   failure, final base z in (z0 - 0.12, z0 - 0.01), mean sum fz over ticks
+   50 to 199 within 25% of the weight, the last tick's fz >= 10 - 1e-3;
+   2 level and 4 NS launches a tick; the first 5 torques held to the same
+   loop through the plain level solver; ms per tick and sim-only ms per
+   tick.
 
 Prints the card's name and power limit, a JSON line describing the kernels,
 then, as the last line, {"ok": true, "device": {...}}. Exits non-zero
@@ -73,6 +94,19 @@ RT_PROFILE = dict(rho_updates=0, warm_kinv_iters=4, cold_ns_iters=10,
 # and one with 54 inequality rows, more than the 48 of one product tile
 MAIN_SHAPES = [(44, 12, 6, 0), (44, 18, 6, 6)]
 LEVEL_SHAPES = MAIN_SHAPES + [(44, 12, 0, 0), (44, 66, 6, 6)]
+# the level kernel's error in the kernels line: the solution, the
+# multipliers, the KKT inverse and the rho_scale the next solve reads; the
+# raw rho_scale's gap is float32 noise the bars excuse
+# (opt/level_qp_parity.py), printed on each phase's line and not counted
+ERR_OUTPUTS = ("x", "z", "y", "Kinv", "carried_rho_scale")
+# the ForceAccExample robots' level shapes, each at B 1024 and B 1 and
+# timed: the quadruped's reference stack (n 34, kernel tile R 3), the
+# centaur's with friction cones (n 49, R 4), and an n 49 level with more
+# inequality rows than one R 4 product covers (74 > 64)
+ROBOT_SHAPES = {(34, 18, 6, 0): "quadruped", (34, 24, 6, 6): "quadruped",
+                (49, 26, 6, 0): "centaur", (49, 32, 6, 6): "centaur",
+                (49, 80, 6, 6): "n 49, 74 inequality rows"}
+FEET = ("foot_fl", "foot_fr", "foot_hr", "foot_hl")
 BACKENDS = ("kernel", "torch")   # level solver: CUDA kernel, plain qp.solve
 # tau of the kernel chain vs the plain chain: float32 sums in another order
 # through 5 chained 12-iteration solves; a wrong row moves tau by O(1) Nm
@@ -91,6 +125,16 @@ NS_B, NS_N, NS_ITERS = 1024, 64, 26
 NS_ATOL, NS_RTOL, NS_RESID = 2e-4, 2e-3, 5e-3
 LOOP_TICKS, KERNEL_LOOP_TICKS, LOOP_COMPARE = 500, 100, 5
 MPC_REPS = 3
+# phase 7: the centaur's friction cones (the bar of the reference's
+# tests/test_force_acc_e2e.py on wrenches: in the cone and fz >= fz_min
+# within 1e-3 N)
+CENTAUR_MU, FZ_MIN, CONE_TOL = 0.7, 10.0, 1e-3
+# phase 8: the quadruped's stand and squat, as tests/test_force_acc_e2e.py
+# drives it (dt 1 ms, 4 substeps, squat 0.05 m), at 400 ticks with the
+# squat from tick 200; the normal forces averaged over ticks 50 to 199;
+# the plant alone timed over 100 ticks
+QUAD_TICKS, QUAD_SUBSTEPS, QUAD_SIM_TICKS = 400, 4, 100
+SQUAT_FROM, SQUAT_DEPTH, FZ_WINDOW = 200, 0.05, (50, 200)
 # device sleep ahead of timed kernel launches: about 10 ms at 2 GHz, ample
 # for the host to queue 20 launches of a wrapper
 LEAD_CYCLES = 20_000_000
@@ -100,7 +144,7 @@ MPC_DRAWS = 3
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES_S = 67e12, 495e12, 3.35e12
 # bars on the NS kernel's time (ms) at each phase 4 shape, printed and not
 # gated: a slow kernel that is right stays
-NS_BARS_MS = (1.0, 0.107, 0.60)
+NS_BARS_MS = (1.0, 0.107, 0.60, None)
 # one plant step's udot, NS kernel vs plain inverse: float32 rounding through
 # a mass matrix of condition ~1e4 after two refinement steps (the bar of
 # tests/test_torch_sim.py for accelerations); a wrong inverse moves udot by
@@ -190,23 +234,21 @@ def import_port():
     return qppvm_tpu_torch
 
 
-def main_path_inputs(torch, dev):
-    """The main path's set-up on ``dev``: a ForceAccPlugin per level-solver
-    backend on the humanoid with the RT profile, and the batched tick's
+def main_path_inputs(torch, dev, model, contacts, **options):
+    """A batched tick's set-up on ``dev``: a ForceAccPlugin per level-solver
+    backend on ``model`` with ``options`` and the RT profile, and the tick's
     inputs (states with q perturbed by 0.01 N(0, 1), references and warm
     state from the kernel plugin's on_start, expanded to B)."""
-    import_port()
-    from qppvm_tpu_torch.model import zoo
     from qppvm_tpu_torch.mpc.rollout import standing_state
     from qppvm_tpu_torch.opt import qp
     from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
 
-    model = zoo.humanoid(device=dev)
-    plugins = {b: ForceAccPlugin(model, contact_links=CONTACTS,
+    plugins = {b: ForceAccPlugin(model, contact_links=contacts,
                                  waist_link="pelvis", iters=12,
-                                 solver_opts=dict(RT_PROFILE, backend=b))
+                                 solver_opts=dict(RT_PROFILE, backend=b),
+                                 **options)
                for b in BACKENDS}
-    st = standing_state(model, CONTACTS)
+    st = standing_state(model, contacts)
     refs, warm, _ = plugins["kernel"].on_start(st)
     expand = lambda a: a.expand(B, *a.shape[1:]).contiguous()  # noqa: E731
     refs_b = {k: {kk: expand(v) for kk, v in r.items()}
@@ -223,10 +265,45 @@ def main_path_inputs(torch, dev):
     return plugins, states, refs_b, warm_b
 
 
+def chain(torch, plugin, states, refs, warm, label, check=None):
+    """TICKS chained batched ticks, each gated on zero solver failures,
+    finite torques of the right shape and ``check(aux)``. Returns the
+    torques and the largest relative primal residual."""
+    taus, prim_max = [], 0.0
+    for k in range(TICKS):
+        tau, warm, aux = plugin._step_impl(states, refs, warm)
+        fail_frac = float(aux.solver_failed.float().mean())
+        if fail_frac != 0.0 or not bool(torch.isfinite(tau).all()):
+            fail(f"{label} tick {k}: solver_fail_frac={fail_frac}, "
+                 f"finite tau={bool(torch.isfinite(tau).all())}")
+        if tuple(tau.shape) != (B, plugin.model.nj):
+            fail(f"{label} tau shape {tuple(tau.shape)}")
+        if check is not None:
+            check(k, aux)
+        prim_max = max(prim_max, float(aux.prim_res.max()))
+        taus.append(tau)
+    return taus, prim_max
+
+
+def compare_taus(torch, taus, taus_ref, label):
+    """Each tick's torques within TAU_ATOL + TAU_RTOL |tau| of the plain
+    chain's; returns the largest gap."""
+    tau_err = 0.0
+    for k, (a, r) in enumerate(zip(taus, taus_ref)):
+        err = float((a - r).abs().max())
+        tau_err = max(tau_err, err)
+        if not torch.all((a - r).abs() <= TAU_ATOL + TAU_RTOL * r.abs()):
+            fail(f"{label} tick {k}: tau differs from the plain chain by "
+                 f"{err:.3g} Nm")
+    return tau_err
+
+
 def check_level_phase(torch, parity, level_qp, cfg, prob, state, label,
                       phases=("cold", "warm")):
     """Kernel vs plain version from ``state``, each phase warm-started from
-    the kernel's own output state. Returns (max abs error, last state)."""
+    the kernel's own output state. Returns (max abs error over
+    ERR_OUTPUTS, last state); every gap, the raw rho_scale's too, is
+    printed."""
     max_err = 0.0
     for phase in phases:
         out = level_qp.solve_level(cfg, *prob, *state)
@@ -237,7 +314,7 @@ def check_level_phase(torch, parity, level_qp, cfg, prob, state, label,
             fail(f"{label} {phase}: {e}")
         print(f"kernel vs plain {label} {phase}: max abs "
               + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
-        max_err = max(max_err, max(errs.values()))
+        max_err = max(max_err, max(errs[k] for k in ERR_OUTPUTS))
         state = out[:5]   # warm: the kernel's own state, rho_scale too
     return max_err, state
 
@@ -251,6 +328,32 @@ def time_level(torch, level_qp, cfg, prob, state):
     k1, k2 = (cuda_time_ms(torch, run_k, lead=True) for _ in range(2))
     p2 = cuda_time_ms(torch, run_p)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def phase_robot_levels(torch, dev, card, parity, level_qp):
+    """Phase 2, continued: the level kernel against its plain version at
+    ROBOT_SHAPES, B 1024 and B 1, cold then warm, in the RT profile, timed
+    with their bounds. Returns (max abs error, {(shape, B): (kernel ms,
+    plain ms, bound ms, bound_by)})."""
+    max_err, times = 0.0, {}
+    for i, ((n, m, h, t), robot) in enumerate(ROBOT_SHAPES.items()):
+        cfg = level_qp.LevelQPConfig(n_eq_head=h, n_eq_tail=t,
+                                     cold_ns_iters=10)
+        for Bl in (B, 1):
+            prob = parity.random_problems(Bl, n, m, h, t, dev, seed=30 + i)
+            label = f"n={n} m={m} h={h} t={t} B={Bl}"
+            err, state = check_level_phase(
+                torch, parity, level_qp, cfg, prob,
+                parity.zero_state(Bl, n, m, dev), label)
+            max_err = max(max_err, err)
+            k_ms, p_ms = time_level(torch, level_qp, cfg, prob, state)
+            b_ms, b_by = bound_ms(*level_qp_cost(cfg, Bl, n, m))
+            times[(n, m, h, t), Bl] = (k_ms, p_ms, b_ms, b_by)
+            print(f"[{card}] level {label} ({robot}): kernel "
+                  f"{k_ms:.4f} ms on the device, plain PyTorch {p_ms:.4f} ms, "
+                  f"bound {b_ms:.4g} ms ({b_by}), kernel at "
+                  f"{100 * b_ms / k_ms:.3g}% of it")
+    return max_err, times
 
 
 def phase_ns_inverse(torch, dev, card):
@@ -279,10 +382,16 @@ def phase_ns_inverse(torch, dev, card):
                      for f in ("qd", "base_rot", "base_pos", "base_vel")})
     Bm = dynamics.mass_matrix(model, st)
     Breg = Bm + 1e-9 * torch.eye(model.nv, device=dev)
+    quad = zoo.quadruped(device=dev)
+    st_q = standing_state(quad, FEET)
+    Bq = dynamics.mass_matrix(quad, st_q) + 1e-9 * torch.eye(quad.nv,
+                                                             device=dev)
     cases = {f"bench B={NS_B} n={NS_N} iters={NS_ITERS}": (K, NS_ITERS, X),
              f"sim B=1 n={model.nv} iters=24": (Breg[:1].contiguous(), 24,
                                                 None),
-             f"sim B={NS_B} n={model.nv} iters=24": (Breg, 24, None)}
+             f"sim B={NS_B} n={model.nv} iters=24": (Breg, 24, None),
+             # the quadruped's plant in phase 8
+             f"sim B=1 n={quad.nv} iters=24": (Bq.contiguous(), 24, None)}
     max_err, times, bounds = 0.0, {}, {}
     for (label, (Kc, iters, Xc)), bar in zip(cases.items(), NS_BARS_MS):
         Xc = nsi.ns_inverse(Kc, iters) if Xc is None else Xc
@@ -324,8 +433,9 @@ def phase_ns_inverse(torch, dev, card):
               f"{k_ms / lib:.3f}); bound "
               f"float32 {f32[0]:.4g} ms, 3xTF32 {tc[0]:.4g} ms "
               f"({bounds[label][1]}), kernel at "
-              f"{100 * bounds[label][0] / k_ms:.3g}% of the lesser; bar "
-              f"{bar} ms {'held' if max(k_ms, call_ms) <= bar else 'MISSED'}")
+              f"{100 * bounds[label][0] / k_ms:.3g}% of the lesser; "
+              + ("no bar" if bar is None else f"bar {bar} ms " + (
+                  "held" if max(k_ms, call_ms) <= bar else "MISSED")))
     bench = f"bench B={NS_B} n={NS_N} iters={NS_ITERS}"
     k_ms, p_ms, lib_ms = times[bench]
     b_ms, b_by = bounds[bench]
@@ -336,7 +446,8 @@ def phase_ns_inverse(torch, dev, card):
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms,
             "ms_sim_b1": times[f"sim B=1 n={model.nv} iters=24"][0],
-            "ms_sim_b1024": times[f"sim B={NS_B} n={model.nv} iters=24"][0]}
+            "ms_sim_b1024": times[f"sim B={NS_B} n={model.nv} iters=24"][0],
+            "ms_quadruped_sim_b1": times[f"sim B=1 n={quad.nv} iters=24"][0]}
 
 
 def check_plant_step(torch, nsi, loop, res):
@@ -511,6 +622,160 @@ def phase_mpc(torch, dev, card, hierarchy, level_qp, nsi):
     return launches, ns_launches
 
 
+def phase_centaur_tick(torch, dev, card, hierarchy, level_qp, nsi, zoo):
+    """Phase 7: the centaur's batched tick with friction cones (n 49)
+    through the level kernel, against the plain chain. Returns the level
+    and NS launches of the kernel chain."""
+    plugins, states, refs_b, warm_b = main_path_inputs(
+        torch, dev, zoo.centaur(device=dev), FEET, use_friction_cones=True,
+        mu=CENTAUR_MU)
+    cone = CENTAUR_MU / 2 ** 0.5
+
+    def inside_cones(k, aux):
+        f = aux.wrenches
+        slip = float((f[..., :2].abs() - cone * f[..., 2:]).max())
+        fz = float(f[..., 2].min())
+        if not (slip <= CONE_TOL and fz >= FZ_MIN - CONE_TOL):
+            fail(f"centaur tick {k}: a wrench leaves its cone (|f_t| - "
+                 f"mu/sqrt(2) fz up to {slip:.3g} N, min fz {fz:.6g} N)")
+
+    level_qp.launches = 0
+    hierarchy.fallbacks = 0
+    nsi.launches = 0
+    taus, prim_max = chain(torch, plugins["kernel"], states, refs_b, warm_b,
+                           "centaur kernel", inside_cones)
+    torch.cuda.synchronize()
+    launches, fallbacks, ns_launches = (level_qp.launches,
+                                        hierarchy.fallbacks, nsi.launches)
+    if launches != 2 * TICKS or fallbacks != 0:
+        fail(f"centaur tick: {launches} launches and {fallbacks} fallbacks, "
+             f"expected {2 * TICKS} and 0")
+    taus_ref, _ = chain(torch, plugins["torch"], states, refs_b, warm_b,
+                        "centaur torch", inside_cones)
+    tau_err = compare_taus(torch, taus, taus_ref, "centaur")
+    print(f"centaur tick (friction cones, n 49): {TICKS} ticks at B={B}: "
+          f"kernel launches {launches}, fallbacks 0, solver_fail_frac 0.0, "
+          f"prim_res_max {prim_max:.3g}, every wrench in its cone (mu "
+          f"{CENTAUR_MU}, fz >= {FZ_MIN} within {CONE_TOL} N); tau vs plain "
+          f"chain max abs diff {tau_err:.3g} Nm (|tau| up to "
+          f"{float(taus_ref[-1].abs().max()):.3g} Nm)")
+    for backend in BACKENDS:
+        times = tick_times_ms(torch, plugins[backend], states, refs_b, warm_b)
+        print(f"[{card}] centaur batched tick B={B} ({backend} level solver): "
+              f"median {statistics.median(times):.3f} ms over {REPS} reps "
+              f"(min {min(times):.3f}, max {max(times):.3f})")
+    return launches, ns_launches
+
+
+def quadruped_loop(torch, dev, backend, zoo):
+    """The reference's ForceAccExample in closed loop: the quadruped with
+    the default ForceAcc stack (3-force wrench box) under the RT profile,
+    on SimRobot at dt 1 ms in QUAD_SUBSTEPS substeps, warm state from
+    on_start; returns the loop and the initial waist position."""
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+    from qppvm_tpu_torch.runtime import robot_interface as ri
+    from qppvm_tpu_torch.runtime import rt_loop
+
+    model = zoo.quadruped(device=dev)
+    plugin = ForceAccPlugin(model, iters=12,
+                            solver_opts=dict(RT_PROFILE, backend=backend))
+    robot = ri.SimRobot(model, state=ri.standing_state(model, FEET),
+                        dt=1e-3, substeps=QUAD_SUBSTEPS, contact_links=FEET)
+    refs, warm, waist = plugin.on_start(robot.state)
+    return rt_loop.ClosedLoop(plugin, robot, refs, warm), waist
+
+
+def drive_quadruped(torch, loop, waist, ticks, record=0):
+    """``ticks`` ticks of ``loop`` from its robot's state, the squat
+    reference (waist lowered by SQUAT_DEPTH) from tick SQUAT_FROM on. Keeps
+    every quantity on the device; returns the final state, the solver
+    failures, the summed normal force of each tick in FZ_WINDOW, the
+    normal forces of the last tick and the first ``record`` torques."""
+    plugin, robot = loop.plugin, loop.robot
+    squat = plugin.squat_refs(loop.refs, waist, depth=SQUAT_DEPTH)
+    st, anchors, w = robot.state, robot._anchors, loop.warm
+    n_fail = torch.zeros((), dtype=torch.int64, device=st.q.device)
+    fz_sums, taus, aux = [], [], None
+    for k in range(ticks):
+        refs = squat if k >= SQUAT_FROM else loop.refs
+        tau, w, aux = plugin._step_impl(st, refs, w)
+        for _ in range(robot.substeps):
+            st, anchors = loop.sim(st, anchors, tau, st.q, loop.zero_kd,
+                                   loop.zero_kd)
+        n_fail = n_fail + aux.solver_failed.sum()
+        if FZ_WINDOW[0] <= k < FZ_WINDOW[1]:
+            fz_sums.append(aux.wrenches[0, :, 2].sum())
+        if k < record:
+            taus.append(tau)
+    return st, n_fail, fz_sums, aux.wrenches[0, :, 2], taus
+
+
+def phase_quadruped_loop(torch, dev, card, hierarchy, level_qp, nsi, zoo):
+    """Phase 8: the quadruped stands and squats for QUAD_TICKS ticks through
+    the level kernel at B 1, its plant's mass-matrix inverse through the NS
+    kernel; gated as tests/test_force_acc_e2e.py's stand and squat."""
+    from qppvm_tpu_torch.model import dynamics
+
+    loop, waist = quadruped_loop(torch, dev, "kernel", zoo)
+    z0 = float(loop.robot.state.base_pos[0, 2])
+    weight = float(dynamics.compute_model_data(
+        loop.plugin.model, loop.robot.state).total_mass[0]) * 9.81
+    level_qp.launches = 0
+    hierarchy.fallbacks = 0
+    nsi.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, n_fail, fz_sums, fz_last, taus = drive_quadruped(
+        torch, loop, waist, QUAD_TICKS, record=LOOP_COMPARE)
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) / QUAD_TICKS * 1e3
+    launches, fallbacks, ns_launches = (level_qp.launches,
+                                        hierarchy.fallbacks, nsi.launches)
+    if launches != 2 * QUAD_TICKS or fallbacks != 0:
+        fail(f"quadruped loop: {launches} level launches and {fallbacks} "
+             f"fallbacks, expected {2 * QUAD_TICKS} and 0")
+    if ns_launches != QUAD_SUBSTEPS * QUAD_TICKS:
+        fail(f"quadruped loop: {ns_launches} NS launches, expected "
+             f"{QUAD_SUBSTEPS} per tick ({QUAD_SUBSTEPS * QUAD_TICKS})")
+    z1 = float(st.base_pos[0, 2])
+    fz_mean = float(torch.stack(fz_sums).mean())
+    fz_min = float(fz_last.min())
+    print(f"quadruped loop (ForceAccExample, 3-force box, n 34): "
+          f"{QUAD_TICKS} ticks through the level kernel at B=1, squat "
+          f"{SQUAT_DEPTH} m from tick {SQUAT_FROM}: {int(n_fail)} solver "
+          f"failures, {launches} level launches, {ns_launches} NS launches, "
+          f"base z {z0:.4f} -> {z1:.4f} m, mean sum fz over ticks "
+          f"{FZ_WINDOW[0]}-{FZ_WINDOW[1]} {fz_mean:.1f} N (weight "
+          f"{weight:.1f} N), last tick's min fz {fz_min:.3f} N")
+    if int(n_fail) != 0:
+        fail(f"quadruped loop: {int(n_fail)} solver failures")
+    if not (z0 - 0.12 < z1 < z0 - 0.01):
+        fail(f"quadruped loop: base z {z0:.4f} -> {z1:.4f} m, outside "
+             f"(z0 - 0.12, z0 - 0.01)")
+    if not abs(fz_mean - weight) < 0.25 * weight:
+        fail(f"quadruped loop: mean sum fz {fz_mean:.1f} N against a weight "
+             f"of {weight:.1f} N")
+    if not fz_min >= FZ_MIN - 1e-3:
+        fail(f"quadruped loop: min fz {fz_min:.6g} N below {FZ_MIN}")
+
+    plain, _ = quadruped_loop(torch, dev, "torch", zoo)
+    *_, taus_ref = drive_quadruped(torch, plain, waist, LOOP_COMPARE,
+                                   record=LOOP_COMPARE)
+    tau_err = compare_taus(torch, taus, taus_ref, "quadruped loop")
+    sim_ms = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.run_sim(QUAD_SIM_TICKS)
+    torch.cuda.synchronize()
+    sim_ms = (time.perf_counter() - t0) / QUAD_SIM_TICKS * 1e3
+    print(f"quadruped loop: first {LOOP_COMPARE} taus within {tau_err:.3g} "
+          f"Nm of the plain loop's")
+    print(f"[{card}] quadruped closed loop B=1 (level kernel): {tick_ms:.3f} "
+          f"ms per tick, sim only {sim_ms:.3f} ms per tick "
+          f"({QUAD_SUBSTEPS} substeps)")
+    return launches, ns_launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -518,6 +783,7 @@ def main():
     import_port()
     from qppvm_tpu_torch import build
     from qppvm_tpu_torch.opt import hierarchy, level_qp, ns_inverse
+    from qppvm_tpu_torch.model import zoo
     from qppvm_tpu_torch.mpc.humanoid_plan import N_SAMPLES
     from qppvm_tpu_torch.opt import level_qp_parity as parity
 
@@ -587,26 +853,17 @@ def main():
         print(f"[{card}] level {label}: kernel {k_ms:.4f} ms, plain PyTorch "
               f"{p_ms:.4f} ms")
 
+    err, robot_level_ms = phase_robot_levels(torch, dev, card, parity,
+                                             level_qp)
+    max_err = max(max_err, err)
+
     # ---- 3. main path -------------------------------------------------------
-    plugins, states, refs_b, warm_b = main_path_inputs(torch, dev)
-
-    def chain(backend):
-        w, taus, prim_max = warm_b, [], 0.0
-        for k in range(TICKS):
-            tau, w, aux = plugins[backend]._step_impl(states, refs_b, w)
-            fail_frac = float(aux.solver_failed.float().mean())
-            if fail_frac != 0.0 or not bool(torch.isfinite(tau).all()):
-                fail(f"{backend} tick {k}: solver_fail_frac={fail_frac}, "
-                     f"finite tau={bool(torch.isfinite(tau).all())}")
-            if tuple(tau.shape) != (B, plugins[backend].model.nj):
-                fail(f"tau shape {tuple(tau.shape)}")
-            prim_max = max(prim_max, float(aux.prim_res.max()))
-            taus.append(tau)
-        return taus, prim_max
-
+    plugins, states, refs_b, warm_b = main_path_inputs(
+        torch, dev, zoo.humanoid(device=dev), CONTACTS)
     level_qp.launches = 0
     hierarchy.fallbacks = 0
-    taus, prim_max = chain("kernel")
+    taus, prim_max = chain(torch, plugins["kernel"], states, refs_b, warm_b,
+                           "kernel")
     torch.cuda.synchronize()
     launches, fallbacks = level_qp.launches, hierarchy.fallbacks
     print(f"main path: {TICKS} ticks at B={B}: kernel launches {launches}, "
@@ -614,13 +871,9 @@ def main():
           f"{prim_max:.3g}")
     if launches != 2 * TICKS or fallbacks != 0:
         fail(f"expected {2 * TICKS} launches and 0 fallbacks")
-    taus_ref, _ = chain("torch")
-    tau_err = 0.0
-    for k, (a, r) in enumerate(zip(taus, taus_ref)):
-        err = float((a - r).abs().max())
-        tau_err = max(tau_err, err)
-        if not torch.all((a - r).abs() <= TAU_ATOL + TAU_RTOL * r.abs()):
-            fail(f"tick {k}: tau differs from the plain chain by {err:.3g} Nm")
+    taus_ref, _ = chain(torch, plugins["torch"], states, refs_b, warm_b,
+                        "torch")
+    tau_err = compare_taus(torch, taus, taus_ref, "main path")
     print(f"tau vs plain-solver chain: max abs diff {tau_err:.3g} Nm "
           f"(|tau| up to {float(taus_ref[-1].abs().max()):.3g} Nm; "
           f"atol {TAU_ATOL}, rtol {TAU_RTOL})")
@@ -641,9 +894,19 @@ def main():
     # ---- 6. MPC plan -------------------------------------------------------
     mpc_launches, mpc_ns = phase_mpc(torch, dev, card, hierarchy, level_qp,
                                      ns_inverse)
+
+    # ---- 7. the centaur's batched tick -------------------------------------
+    centaur_launches, centaur_ns = phase_centaur_tick(
+        torch, dev, card, hierarchy, level_qp, ns_inverse, zoo)
+
+    # ---- 8. the quadruped's closed loop ------------------------------------
+    quad_launches, quad_ns = phase_quadruped_loop(
+        torch, dev, card, hierarchy, level_qp, ns_inverse, zoo)
     ns_row["launches_by_path"] = {"ns_path": ns_row["launches"],
                                   "closed_loop_b1": loop_ns,
-                                  "mpc_plans": mpc_ns}
+                                  "mpc_plans": mpc_ns,
+                                  "centaur_tick_b1024": centaur_ns,
+                                  "quadruped_loop_b1": quad_ns}
 
     b_ms, b_by = bound_ms(sum(f for f, _ in level_bound),
                           sum(b for _, b in level_bound))
@@ -657,9 +920,16 @@ def main():
         "plain_ms": sum(p for _, p in level_ms),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "ms_b1": sum(level_ms_b1), "ms_rollout_b512": sum(level_ms_rollout),
+        **{f"ms_{robot}_b{Bl}": sum(
+            robot_level_ms[shape, Bl][0]
+            for shape, r in ROBOT_SHAPES.items() if r == robot)
+           for robot in ("quadruped", "centaur") for Bl in (B, 1)},
         "launches_by_path": {"batched_tick": launches,
                              "closed_loop_b1": loop_launches,
-                             "mpc_plans": mpc_launches}}, ns_row]}))
+                             "mpc_plans": mpc_launches,
+                             "centaur_tick_b1024": centaur_launches,
+                             "quadruped_loop_b1": quad_launches}},
+        ns_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

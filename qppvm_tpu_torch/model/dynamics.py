@@ -13,7 +13,12 @@ import torch
 
 from qppvm_tpu_torch.model import kinematics, spatial
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
-from qppvm_tpu_torch.opt import ns_inverse
+from qppvm_tpu_torch.opt import linalg, ns_inverse
+
+# Mass-matrix inverses of CUDA tensors that the NS kernel does not take
+# (not float32, or n above its maximum) and that ran the plain NS
+# (``mass_matrix_inverse``); readers reset it to 0.
+plain_inverses = 0
 
 
 def _base_gravity_acc(model: RobotModel, state: RobotState):
@@ -115,6 +120,28 @@ def mass_matrix(model: RobotModel, state: RobotState,
     return M + torch.diag_embed(arm)
 
 
+def ns_kernel_takes(dtype, n: int, max_n: int) -> bool:
+    """Whether the NS kernel inverts a matrix of ``dtype`` and size n, given
+    its largest size ``max_n``."""
+    return dtype == torch.float32 and n <= max_n
+
+
+def mass_matrix_inverse(Breg):
+    """The 22 + 2 Newton-Schulz iterations of ``linalg.spd_inverse_ns`` on
+    regularized mass matrices Breg (B, n, n). A CUDA tensor the NS kernel
+    takes goes to it (``ns_inverse.ns_inverse(Breg, 24)``, one launch); any
+    other CUDA tensor runs the plain version and adds one to
+    ``plain_inverses``. A CPU tensor goes through ``ns_inverse.ns_inverse``,
+    which runs the same plain version."""
+    global plain_inverses
+    if Breg.device.type == "cuda" and not ns_kernel_takes(
+            Breg.dtype, Breg.shape[-1],
+            ns_inverse.library().ns_inverse_max_n()):
+        plain_inverses += 1
+        return linalg.spd_inverse_ns(Breg, iters=22, refine=2)
+    return ns_inverse.ns_inverse(Breg, iters=24)
+
+
 def forward_dynamics(model: RobotModel, state: RobotState, tau,
                      ext_wrenches=None,
                      kin: Optional[kinematics.KinData] = None,
@@ -122,9 +149,8 @@ def forward_dynamics(model: RobotModel, state: RobotState, tau,
     """udot = B^{-1} (S^T tau + tau_ext - h), (B, nv); ``tau`` (B, nj)
     actuated torques, ``ext_wrenches`` as for ``rnea``.
 
-    ``method="ns"``: the Newton-Schulz inverse of B + 1e-9 I (the 22 + 2
-    iterations of ``linalg.spd_inverse_ns``, through ``ns_inverse``: the
-    CUDA kernel on the card, the plain version on the CPU) applied with two
+    ``method="ns"``: the Newton-Schulz inverse of B + 1e-9 I
+    (``mass_matrix_inverse``) applied with two
     refinement steps against that matrix; ``"chol"``: an exact
     Cholesky solve. ``B``: the mass matrix at ``state`` when the caller has
     it; ``binv``: an approximate inverse of it (a warm inverse carried along
@@ -146,7 +172,7 @@ def forward_dynamics(model: RobotModel, state: RobotState, tau,
         return torch.cholesky_solve(rhs[..., None],
                                     torch.linalg.cholesky(Breg))[..., 0]
     if binv is None:
-        binv = ns_inverse.ns_inverse(Breg, iters=24)
+        binv = mass_matrix_inverse(Breg)
     mv = lambda M, v: (M @ v[..., None])[..., 0]  # noqa: E731
     x = mv(binv, rhs)
     for _ in range(2):   # refinement against the true B

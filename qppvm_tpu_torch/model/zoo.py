@@ -1,8 +1,20 @@
-"""Built-in robot models (port of qppvm_tpu/model/zoo.py, humanoid only).
+"""Built-in robot models (port of qppvm_tpu/model/zoo.py).
 
-The same programmatic builder as the reference, so ``humanoid()`` yields
-the reference's 32-joint floating-base humanoid (38 generalized DoF, feet
-``l_sole``/``r_sole``) without JAX.
+The same programmatic builder as the reference, so each model is the
+reference's, built without JAX, on ``device`` (the card unless the caller
+asks for the CPU):
+
+- ``arm7``: fixed-base 7-DoF arm;
+- ``dual_arm``: fixed-base torso + two 7-DoF arms (links ``arm1_*`` /
+  ``arm2_*``);
+- ``quadruped``: floating-base ``pelvis`` + 4 legs, feet
+  ``foot_fl/fr/hr/hl`` (22 generalized DoF);
+- ``biped``: floating-base biped, feet ``l_sole``/``r_sole`` (18);
+- ``centaur``: the quadruped base with a torso and two 7-DoF arms (37);
+- ``humanoid``: floating-base 32-joint humanoid (38).
+
+Every joint is revolute: the reference's zoo imports ``PRISMATIC`` but no
+model uses it, so this module needs none.
 """
 from __future__ import annotations
 
@@ -93,6 +105,70 @@ def _add_arm7(b, prefix, parent, root_offset, mirror=1.0, home=None):
     return p
 
 
+def arm7(dtype=torch.float32, device=devices.DEFAULT) -> RobotModel:
+    """Fixed-base 7-DoF arm."""
+    b = _Builder(root_name="base_link")
+    _add_arm7(b, "arm1", -1, (0, 0, 0.1))
+    return b.finish(dtype=dtype, device=device)
+
+
+def _add_torso_arms(b, torso_offset):
+    """Torso yaw joint on the root with two 7-DoF arms (``arm1``/``arm2``)."""
+    torso = b.add("torso_yaw", -1, (0, 0, 1), torso_offset, 10.0, 0.3,
+                  link_name="torso", tau=200.0)
+    _add_arm7(b, "arm1", torso, (0.0, 0.25, 0.25), mirror=1.0)
+    _add_arm7(b, "arm2", torso, (0.0, -0.25, 0.25), mirror=-1.0)
+
+
+def dual_arm(dtype=torch.float32, device=devices.DEFAULT) -> RobotModel:
+    """Fixed-base torso + two 7-DoF arms, end-effectors ``arm1_7`` /
+    ``arm2_7``."""
+    b = _Builder(root_name="base_link")
+    _add_torso_arms(b, (0, 0, 0.4))
+    return b.finish(dtype=dtype, device=device)
+
+
+def _add_leg4(b, prefix, parent, root_offset, foot_name):
+    """4-DoF leg (hip pitch/roll, knee, ankle pitch) ending in a foot link
+    at the distal end of the shank (the ankle joint's origin), so the knee
+    column of the contact Jacobian is not zero."""
+    hip1 = b.add(f"{prefix}_hip_y", parent, (0, 1, 0), root_offset, 2.0, 0.1,
+                 home=0.4, tau=200.0)
+    hip2 = b.add(f"{prefix}_hip_x", hip1, (1, 0, 0), (0, 0, -0.05), 2.0, 0.25,
+                 home=0.0, tau=200.0, com_along=[0, 0, -1])
+    knee = b.add(f"{prefix}_knee", hip2, (0, 1, 0), (0, 0, -0.30), 1.5, 0.30,
+                 home=-0.8, tau=200.0, com_along=[0, 0, -1])
+    return b.add(f"{prefix}_ankle_y", knee, (0, 1, 0), (0, 0, -0.30), 0.3,
+                 0.02, home=0.0, tau=60.0, com_along=[0, 0, -1],
+                 link_name=foot_name)
+
+
+def _four_legged():
+    """Floating ``pelvis`` with four legs, feet ``foot_fl/fr/hr/hl``."""
+    b = _Builder(root_name="pelvis", floating=True, base_mass=25.0,
+                 base_size=(0.6, 0.4, 0.2))
+    _add_leg4(b, "fl", -1, (0.3, 0.2, -0.05), "foot_fl")
+    _add_leg4(b, "fr", -1, (0.3, -0.2, -0.05), "foot_fr")
+    _add_leg4(b, "hr", -1, (-0.3, -0.2, -0.05), "foot_hr")
+    _add_leg4(b, "hl", -1, (-0.3, 0.2, -0.05), "foot_hl")
+    return b
+
+
+def quadruped(dtype=torch.float32, device=devices.DEFAULT) -> RobotModel:
+    """Floating-base quadruped: pelvis + 4 legs (16 joints, 22 generalized
+    DoF)."""
+    return _four_legged().finish(dtype=dtype, device=device)
+
+
+def centaur(dtype=torch.float32, device=devices.DEFAULT) -> RobotModel:
+    """Floating-base centaur: the quadruped's base and legs plus a torso and
+    two 7-DoF arms with end-effectors ``arm1_7`` / ``arm2_7`` (31 joints,
+    37 generalized DoF)."""
+    b = _four_legged()
+    _add_torso_arms(b, (0.2, 0.0, 0.1))
+    return b.finish(dtype=dtype, device=device)
+
+
 def _add_leg6(b, prefix, parent, root_offset, foot_name):
     h1 = b.add(f"{prefix}_hip_z", parent, (0, 0, 1), root_offset, 2.0, 0.08,
                tau=150.0)
@@ -106,6 +182,15 @@ def _add_leg6(b, prefix, parent, root_offset, foot_name):
                home=-0.35, tau=150.0, com_along=[0, 0, -1])
     return b.add(f"{prefix}_ankle_x", a1, (1, 0, 0), (0, 0, -0.05), 0.8, 0.04,
                  tau=120.0, com_along=[0, 0, -1], link_name=foot_name)
+
+
+def biped(dtype=torch.float32, device=devices.DEFAULT) -> RobotModel:
+    """Floating-base 12-DoF biped, feet ``l_sole`` / ``r_sole``."""
+    b = _Builder(root_name="pelvis", floating=True, base_mass=15.0,
+                 base_size=(0.25, 0.3, 0.25))
+    _add_leg6(b, "l_leg", -1, (0.0, 0.11, -0.05), "l_sole")
+    _add_leg6(b, "r_leg", -1, (0.0, -0.11, -0.05), "r_sole")
+    return b.finish(dtype=dtype, device=device)
 
 
 def humanoid(dtype=torch.float32, device=devices.DEFAULT) -> RobotModel:
@@ -127,3 +212,11 @@ def humanoid(dtype=torch.float32, device=devices.DEFAULT) -> RobotModel:
     b.add("head", n2, (1, 0, 0), (0, 0, 0.05), 1.5, 0.12, tau=20.0,
           link_name="head")
     return b.finish(dtype=dtype, device=device)
+
+
+def by_name(name: str, dtype=torch.float32,
+            device=devices.DEFAULT) -> RobotModel:
+    """The zoo model called ``name``."""
+    return {"arm7": arm7, "dual_arm": dual_arm, "quadruped": quadruped,
+            "centaur": centaur, "biped": biped,
+            "humanoid": humanoid}[name](dtype=dtype, device=device)

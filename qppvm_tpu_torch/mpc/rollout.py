@@ -23,7 +23,7 @@ import torch
 
 from qppvm_tpu_torch.model import dynamics, kinematics
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
-from qppvm_tpu_torch.opt import hierarchy, linalg, ns_inverse
+from qppvm_tpu_torch.opt import hierarchy, linalg
 from qppvm_tpu_torch.runtime.robot_interface import (contact_offsets_for,
                                                      ground_forces,
                                                      init_anchors,
@@ -224,7 +224,7 @@ def make_rollout_fn(plugin, cfg: RolloutConfig, cost_fn: Callable,
                                    state0.batch)
         B0 = dynamics.mass_matrix(model, state0)
         B0 = B0 + 1e-9 * torch.eye(model.nv, dtype=B0.dtype, device=B0.device)
-        binv0 = ns_inverse.ns_inverse(B0, iters=24)
+        binv0 = dynamics.mass_matrix_inverse(B0)
         anchors0 = init_anchors(model, state0, contact_idx, contact_offs,
                                 plugin.dtype)
         return (state0, refs0, warm0, refs0["waist_task"]["p"], binv0,

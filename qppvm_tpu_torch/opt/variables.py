@@ -29,6 +29,11 @@ class AffineExpr:
         """This expression's value at solutions x (B, n) -> (B, k)."""
         return x @ self.M.transpose(-1, -2) + self.c
 
+    def rows(self, idx) -> "AffineExpr":
+        """The expression's rows ``idx``."""
+        idx = list(idx)
+        return AffineExpr(M=self.M[idx], c=self.c[idx])
+
 
 class Optvar:
     """Named segments of one stacked decision variable."""

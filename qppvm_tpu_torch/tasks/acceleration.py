@@ -2,7 +2,7 @@
 (port of qppvm_tpu/tasks/acceleration.py)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,17 +21,21 @@ def ref_scalar(ref, key, default, ctx: AssembleCtx):
 
 class Cartesian(Task):
     """Cartesian acceleration task J udot + Jdot u = xdd_des with a PD servo
-    on the pose reference."""
+    on the pose reference; ``indices`` keeps those rows of the 6D task
+    (linear first), e.g. ``(0, 1, 2)`` for position only."""
 
     def __init__(self, name: str, distal_link: str, qddot: AffineExpr,
                  base_link: str = "world", kp: float = 100.0,
-                 kd: Optional[float] = None):
+                 kd: Optional[float] = None,
+                 indices: Optional[Sequence[int]] = None):
         self.name = name
         self.base_link = base_link
         self.distal_link = distal_link
         self.qddot = qddot
         self.kp = kp
         self.kd = 2.0 * float(np.sqrt(kp)) if kd is None else kd
+        # all six rows without a gather when no selection is asked for
+        self.rows = slice(None) if indices is None else list(indices)
 
     def _frame(self, model, data):
         from qppvm_tpu_torch.model.dynamics import (frame_data,
@@ -61,8 +65,8 @@ class Cartesian(Task):
         kp = ref_scalar(ref, "kp", self.kp, ctx)[:, None]
         kd = ref_scalar(ref, "kd", self.kd, ctx)[:, None]
         xdd_des = ref["a"] + kp * e + kd * (ref["v"] - v)
-        A = J @ self.qddot.M
-        b = xdd_des - bias - J @ self.qddot.c
+        A = (J @ self.qddot.M)[:, self.rows]
+        b = (xdd_des - bias - J @ self.qddot.c)[:, self.rows]
         w = self.weight * ref_scalar(ref, "w", 1.0, ctx)
         return w[:, None, None] * A, w[:, None] * b
 

@@ -9,7 +9,7 @@ references live in the batched ``refs`` dict passed to every tick.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -77,6 +77,35 @@ class AggregatedTask(Task):
 
     def base_tasks(self):
         return [bt for t in self.tasks for bt in t.base_tasks()]
+
+
+class SubTask(Task):
+    """Rows ``indices`` of another task (OpenSoT's SubTask)."""
+
+    def __init__(self, task: Task, indices: Sequence[int],
+                 name: Optional[str] = None):
+        self.task = task
+        self.indices = list(indices)
+        self.name = name or f"{task.name}[{self.indices}]"
+
+    def assemble(self, ctx: AssembleCtx):
+        A, b = self.task.assemble(ctx)
+        return A[:, self.indices], b[:, self.indices]
+
+    def ref_init(self, model, data, state):
+        return self.task.ref_init(model, data, state)
+
+    def base_tasks(self):
+        return self.task.base_tasks()
+
+
+class Indices:
+    """OpenSoT's ``Indices::range``."""
+
+    @staticmethod
+    def range(lo: int, hi: int):
+        """Inclusive range: ``range(0, 2)`` is rows 0, 1, 2."""
+        return list(range(lo, hi + 1))
 
 
 BOX = "box"

@@ -13,21 +13,38 @@ from qppvm_tpu_torch.tasks.base import AssembleCtx, Task
 
 
 class ForceReg(Task):
-    """Small-weight task pulling each contact wrench toward an equal share of
-    the robot's weight, ``f_des_i = W / n_contacts * z_hat`` (tangential /
-    moment targets 0), which pins the force-distribution nullspace no other
-    task constrains. (The reference's contact gates and quasi-static share
-    are not ported yet.)
+    """Small-weight task pulling each contact wrench toward its share of the
+    robot's weight along ``up_index`` (tangential / moment targets 0),
+    which pins the force-distribution nullspace no other task constrains.
+
+    ``share_mode``:
+    - "gate": an equal share per unit gate, ``W g_i / sum_j g_j``;
+    - "static": the quasi-static split at the measured CoM, min ||w||^2
+      s.t. sum w_i = 1 and sum w_i (p_i - com)_xy = 0 over the gated feet
+      (a 3 x 3 system solved by its adjugate), clamped at 0 and
+      renormalized. Needs ``contact_links``.
+
+    With ``gates_key`` set and ``refs[gates_key]["active"]`` (B, nc)
+    present, each contact's share follows its 0..1 gate; otherwise every
+    gate is 1.
 
     refs: ``f`` (additive offset on f_des), ``w`` (runtime weight scale)."""
 
     def __init__(self, name: str, wrenches: Sequence[AffineExpr],
-                 w_tan: float = 0.1, w_norm: float = 0.05, up_index: int = 2):
+                 w_tan: float = 0.1, w_norm: float = 0.05,
+                 gates_key: Optional[str] = None, up_index: int = 2,
+                 share_mode: str = "gate",
+                 contact_links: Optional[Sequence[str]] = None):
         self.name = name
         self.wrenches = list(wrenches)
+        self.share_mode = share_mode
+        self.contact_links = list(contact_links) if contact_links else None
+        if share_mode == "static" and not self.contact_links:
+            raise ValueError("share_mode='static' needs contact_links")
         self.w_tan = w_tan
         self.w_norm = w_norm
         self.weight = max(w_tan, w_norm)
+        self.gates_key = gates_key
         self.up_index = up_index
 
     def ref_init(self, model, data, state):
@@ -36,16 +53,45 @@ class ForceReg(Task):
         kw = dict(dtype=data.com_pos.dtype, device=data.com_pos.device)
         return {"f": torch.zeros((B, n), **kw), "w": torch.ones((B,), **kw)}
 
+    def _static_share(self, ctx: AssembleCtx, g):
+        """Quasi-static support weights (B, nc) at the measured CoM, not
+        yet normalized."""
+        P = torch.stack([kinematics.link_pose(ctx.model, ctx.data.kin, l)[1]
+                         for l in self.contact_links], dim=1)   # (B, nc, 3)
+        d = P[..., :2] - ctx.data.com_pos[:, None, :2]          # (B, nc, 2)
+        A = torch.cat([torch.ones_like(d[..., :1]), d],
+                      dim=-1).transpose(-1, -2)                 # (B, 3, nc)
+        M3 = (A * g[:, None, :]) @ A.transpose(-1, -2) + 1e-5 * torch.eye(
+            3, dtype=ctx.dtype, device=A.device)
+        m = lambda i, j: M3[:, i, j]  # noqa: E731
+        c00 = m(1, 1) * m(2, 2) - m(1, 2) * m(2, 1)
+        c10 = m(1, 2) * m(2, 0) - m(1, 0) * m(2, 2)
+        c20 = m(1, 0) * m(2, 1) - m(1, 1) * m(2, 0)
+        det = m(0, 0) * c00 + m(0, 1) * c10 + m(0, 2) * c20
+        lam = (torch.stack([c00, c10, c20], dim=-1)
+               / torch.clamp(det.abs(), min=1e-12)[:, None]
+               * torch.sign(det)[:, None])                       # M3^-1 e1
+        return torch.clamp(
+            g * (A.transpose(-1, -2) @ lam[..., None])[..., 0], min=0.0)
+
     def assemble(self, ctx: AssembleCtx):
         ref = ctx.refs[self.name]
         dev = ctx.state.q.device
-        share = ctx.data.total_mass * torch.linalg.norm(
-            ctx.model.gravity.to(ctx.dtype)) / len(self.wrenches)   # (B,)
+        nc = len(self.wrenches)
+        if self.gates_key is not None and self.gates_key in ctx.refs:
+            g = ctx.refs[self.gates_key]["active"].to(ctx.dtype)   # (B, nc)
+        else:
+            g = torch.ones((ctx.batch, nc), dtype=ctx.dtype, device=dev)
+        W = ctx.data.total_mass * torch.linalg.norm(
+            ctx.model.gravity.to(ctx.dtype))                        # (B,)
+        w_sh = self._static_share(ctx, g) if self.share_mode == "static" else g
+        share = W[:, None] * w_sh / torch.clamp(w_sh.sum(-1, keepdim=True),
+                                                min=1e-6)
         f_des, row_w = [], []
-        for wr in self.wrenches:
+        for i, wr in enumerate(self.wrenches):
             up = torch.zeros((wr.size,), dtype=ctx.dtype, device=dev)
             up[self.up_index] = 1.0
-            f_des.append(share[:, None] * up)
+            f_des.append(share[:, i:i + 1] * up)
             rw = torch.full((wr.size,), self.w_tan, dtype=ctx.dtype, device=dev)
             rw[self.up_index] = self.w_norm
             row_w.append(rw)

@@ -21,13 +21,22 @@ The bars are those of tests/test_pallas_qp.py:72-88 (kernel vs reference
 solver), except for rho_scale (``level_qp_parity.check_rho_scale`` says
 why and how).
 
+Level kernel at the ForceAccExample robots' shapes: the quadruped's
+reference stack (n 34), the centaur's with friction cones (n 49, the
+R = 4 instantiation) and an n 49 level with more inequality rows than one
+R = 4 product covers, at B 1 and 37.
+
 NS-inverse kernel (3xTF32 on the tensor cores): SPD batches K = M M^T +
 0.5 I at n 1 to 139 (inside one 16 x 8 mma tile, on and off the tile
-edges, the humanoid's 38, the 64 of bench_pallas.py, the unpadded layout
-above 128) and B 1 / 37, to the bars of tests/test_pallas_linalg.py: atol
+edges, the quadruped's 22, the centaur's 37, the humanoid's 38, the 64 of
+bench_pallas.py, the unpadded layout above 128) and B 1 / 37, to the bars of tests/test_pallas_linalg.py: atol
 2e-4 + rtol 2e-3 against the plain version, max |K X - I| < 5e-3; a batch
 with non-finite items, which stay non-finite where the plain version is
 without touching the others.
+
+The plant's mass-matrix inverse routing (float32 to the NS kernel, float64
+to the plain NS, counted) and one batched tick of the centaur with friction
+cones, level kernel against plain level solver.
 """
 import pytest
 import torch
@@ -54,7 +63,11 @@ LEVEL_CASES = [(*s, 256, "own") for s in SHAPES] + [
     (44, 12, 6, 0, 37, "half"),    # warm Kinv good on even items only
     (44, 18, 6, 6, 37, "nonfinite"),   # NaN / inf in the warm Kinv
     (44, 12, 6, 0, 37, "indefinite"),  # item 0's NS ends non-finite
-]
+] + [(*s, Bs, "own") for s in [
+    (34, 18, 6, 0), (34, 24, 6, 6),    # the quadruped's reference stack
+    (49, 26, 6, 0), (49, 32, 6, 6),    # the centaur's with friction cones
+    (49, 80, 6, 6),                    # more rows than one R 4 product (64)
+] for Bs in (1, 37)]
 
 
 @pytest.fixture
@@ -137,6 +150,7 @@ def _ns_passes(K, X, ref):
 
 
 @pytest.mark.parametrize("n,iters", [(1, 26), (7, 26), (8, 26), (16, 24),
+                                     (22, 24), (37, 24),
                                      (38, 24), (40, 26), (44, 24), (63, 26),
                                      (64, 26), (65, 26), (100, 26),
                                      (139, 26)])
@@ -198,3 +212,75 @@ def test_kernel_rejects_bad_inputs(device):
             *parity.zero_state(1, n_big, 1, device))
     with pytest.raises(ValueError, match="shared memory"):
         level_qp.solve_level(big, *args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_plant_mass_matrix_inverse_routing(device, dtype):
+    """One SimRobot step of the quadruped: float32 mass matrices go to the
+    NS kernel (one launch a substep), float64 ones to the plain NS, counted
+    in ``dynamics.plain_inverses``; both match the plain plant step."""
+    from qppvm_tpu_torch.model import dynamics, zoo
+    from qppvm_tpu_torch.runtime import robot_interface as ri
+
+    feet = ("foot_fl", "foot_fr", "foot_hr", "foot_hl")
+    model = zoo.quadruped(dtype=dtype, device=device)
+    robots = [ri.SimRobot(model, state=ri.standing_state(model, feet),
+                          substeps=4, contact_links=feet, dtype=dtype)
+              for _ in range(2)]
+    ns_inverse.launches = 0
+    dynamics.plain_inverses = 0
+    robots[0].move()
+    torch.cuda.synchronize()
+    kernel = dtype == torch.float32
+    assert ns_inverse.launches == (4 if kernel else 0)
+    assert dynamics.plain_inverses == (0 if kernel else 4)
+    with pytest.MonkeyPatch.context() as mp:   # the plain plant
+        mp.setattr(dynamics, "mass_matrix_inverse",
+                   lambda K: ns_inverse.ns_inverse_reference(K, 24))
+        robots[1].move()
+    for a, r in zip((robots[0].state.q, robots[0].state.base_pos),
+                    (robots[1].state.q, robots[1].state.base_pos)):
+        torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-5)
+
+
+def test_centaur_tick_kernel_matches_plain(device):
+    """One batched tick (B 37) of the centaur with friction cones through
+    the level kernel against the same tick through the plain level solver:
+    the same tau (the bars of chip_smoke.py's chained ticks), wrenches in
+    their cones, 2 launches and no fallback."""
+    from qppvm_tpu_torch.model import zoo
+    from qppvm_tpu_torch.mpc.rollout import standing_state
+    from qppvm_tpu_torch.opt import hierarchy, qp
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+
+    Bt = 37
+    profile = dict(rho_updates=0, warm_kinv_iters=4, cold_ns_iters=10,
+                   scale_iters=2, pinv_ns_iters=5)
+    model = zoo.centaur(device=device)
+    plugins = [ForceAccPlugin(model, iters=12, use_friction_cones=True,
+                              solver_opts=dict(profile, backend=b))
+               for b in ("kernel", "torch")]
+    st = standing_state(model, plugins[0].contact_links)
+    refs, warm, _ = plugins[0].on_start(st)
+    ex = lambda a: a.expand(Bt, *a.shape[1:]).contiguous()  # noqa: E731
+    refs = {k: {kk: ex(v) for kk, v in r.items()} for k, r in refs.items()}
+    warm = tuple(qp.QPState(**{f: ex(getattr(w, f)) for f in
+                               ("x", "z", "y", "Kinv", "rho_scale")})
+                 for w in warm)
+    g = torch.Generator(device=device).manual_seed(0)
+    states = type(st)(q=ex(st.q) + 0.01 * torch.randn(
+        Bt, model.nj, generator=g, device=device),
+        **{f: ex(getattr(st, f))
+           for f in ("qd", "base_rot", "base_pos", "base_vel")})
+    level_qp.launches = 0
+    hierarchy.fallbacks = 0
+    tau, _, aux = plugins[0]._step_impl(states, refs, warm)
+    torch.cuda.synchronize()
+    assert (level_qp.launches, hierarchy.fallbacks) == (2, 0)
+    tau_ref, _, aux_ref = plugins[1]._step_impl(states, refs, warm)
+    assert not aux.solver_failed.any() and not aux_ref.solver_failed.any()
+    assert bool(((tau - tau_ref).abs() <= 5e-3 + 1e-3 * tau_ref.abs()).all())
+    f = aux.wrenches
+    assert bool((f[..., :2].abs() <= 0.7 / 2 ** 0.5 * f[..., 2:]
+                 + 1e-3).all())
+    assert bool((f[..., 2] >= 10.0 - 1e-3).all())

@@ -135,3 +135,26 @@ def test_entry_points_default_to_the_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_chip_smoke_level_error_leaves_out_the_raw_rho_scale(monkeypatch,
+                                                             capsys):
+    """chip_smoke.py's level phases report, for the kernels line, the
+    largest gap over x, z, y, Kinv and the carried rho_scale; the raw
+    rho_scale's gap, which the bars excuse, is printed and not counted."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    from qppvm_tpu_torch.opt import level_qp_parity as parity
+
+    gaps = dict(x=1e-5, z=2e-5, y=3e-5, Kinv=4e-5, rho_scale=0.04,
+                prim=0.5, dual=0.5, obj=0.5, carried_rho_scale=5e-5)
+    monkeypatch.setattr(parity, "check_level_outputs",
+                        lambda *a: dict(gaps))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    cfg = level_qp.LevelQPConfig(n_eq_head=2)
+    prob = parity.random_problems(2, 6, 5, 2, 0, "cpu", seed=0)
+    err, _ = chip_smoke.check_level_phase(
+        torch, parity, level_qp, cfg, prob,
+        parity.zero_state(2, 6, 5, "cpu"), "toy")
+    assert err == 5e-5
+    assert "rho_scale=0.04" in capsys.readouterr().out

@@ -202,6 +202,31 @@ def test_rollout_start_inverse_goes_through_the_ns_kernel(models, ns_calls):
                                                        refine=2))
 
 
+@pytest.mark.parametrize("dtype,n,takes", [
+    (torch.float32, 22, True), (torch.float32, 139, True),
+    (torch.float32, 140, False), (torch.float64, 22, False),
+    (torch.float16, 22, False)])
+def test_mass_matrix_inverse_rule(dtype, n, takes):
+    """The NS kernel takes float32 matrices up to its largest size (139
+    here); on the card anything else runs the plain NS, counted."""
+    assert dynamics.ns_kernel_takes(dtype, n, 139) is takes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mass_matrix_inverse_on_the_cpu(models, ns_calls, dtype):
+    """A CPU tensor of any dtype goes through ns_inverse.ns_inverse
+    (iters 24), bitwise spd_inverse_ns(B, 22, 2), and counts no plain
+    routing."""
+    jm, tm = models
+    ts = _tstate(_near_ground_states(jm, seed=1))
+    K = (dynamics.mass_matrix(tm, ts) + 1e-9 * torch.eye(tm.nv)).to(dtype)
+    dynamics.plain_inverses = 0
+    X = dynamics.mass_matrix_inverse(K)
+    assert ns_calls == [24] and dynamics.plain_inverses == 0
+    assert X.dtype == dtype
+    assert torch.equal(X, linalg.spd_inverse_ns(K, iters=22, refine=2))
+
+
 @pytest.fixture(scope="module")
 def contact_case(models):
     """ground_forces, stop_torques and one _sim_step on the same inputs,
