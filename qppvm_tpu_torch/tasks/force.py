@@ -56,8 +56,9 @@ class ForceReg(Task):
     def _static_share(self, ctx: AssembleCtx, g):
         """Quasi-static support weights (B, nc) at the measured CoM, not
         yet normalized."""
-        P = torch.stack([kinematics.link_pose(ctx.model, ctx.data.kin, l)[1]
-                         for l in self.contact_links], dim=1)   # (B, nc, 3)
+        P = torch.stack([kinematics.link_pose(ctx.model, ctx.data.kin,
+                                              link)[1]
+                         for link in self.contact_links], dim=1)  # (B, nc, 3)
         d = P[..., :2] - ctx.data.com_pos[:, None, :2]          # (B, nc, 2)
         A = torch.cat([torch.ones_like(d[..., :1]), d],
                       dim=-1).transpose(-1, -2)                 # (B, 3, nc)
