@@ -19,6 +19,8 @@ and sign, and the scale is taken over the others); solver states to the
 level-kernel bars of tests/test_pallas_qp.py; torques, wrenches and
 accelerations to 1e-3 of their scale.
 """
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -135,19 +137,16 @@ def centaur():
     """The centaur with friction cones: the JAX on_start (one program),
     then two chained batched ticks from its warm state (one program, which
     also returns each tick's stack, the stack of the same plugin with joint
-    acceleration limits, and the model data)."""
+    acceleration limits, and the model data). The two programs compile
+    side by side, on two threads."""
     jm = jzoo.centaur()
     jp = JForceAcc(jm, iters=12, solver_opts=dict(PROFILE, backend="xla"),
                    **CENTAUR_CONES)
     jp_jl = JForceAcc(jm, iters=12, solver_opts=dict(PROFILE, backend="xla"),
                       use_joint_limits=True, **CENTAUR_CONES)
     st = jax.jit(lambda: jrollout.standing_state(jm, FEET))()
-    with pytest.MonkeyPatch.context() as mp:
-        _validate_off(mp)
-        refs, warm, waist = jax.jit(jp.on_start)(st)
     arrs = _port_states({k: np.asarray(getattr(st, k))
                          for k in convert.STATE_FIELDS}, seed=0)
-    refs_b, warm_b = _batched(_np(refs)), _batched(_np(warm))
 
     def tick(s, r, w):
         data = jdyn.compute_model_data(jm, s)
@@ -155,7 +154,22 @@ def centaur():
                                         dtype=jnp.float32)
         return jp._step_impl(s, r, w), build(jp), build(jp_jl), data
 
-    step = jax.jit(jax.vmap(tick))
+    def batched(tree):
+        return jax.tree.map(lambda a: jax.ShapeDtypeStruct(
+            (B,) + a.shape, a.dtype), tree)
+
+    with pytest.MonkeyPatch.context() as mp:
+        _validate_off(mp)
+        refs_s, warm_s, _ = jax.eval_shape(jp.on_start, st)
+        with ThreadPoolExecutor(2) as pool:
+            start = pool.submit(lambda: jax.jit(jp.on_start).lower(
+                st).compile())
+            step = pool.submit(lambda: jax.jit(jax.vmap(tick)).lower(
+                jax.eval_shape(lambda: _jstate(arrs)),
+                batched(refs_s), batched(warm_s)).compile())
+            start, step = start.result(), step.result()
+    refs, warm, waist = start(st)
+    refs_b, warm_b = _batched(_np(refs)), _batched(_np(warm))
     ticks, w = [], warm_b
     for _ in range(2):
         (tau, w, aux), stack, stack_jl, data = step(_jstate(arrs), refs_b, w)
