@@ -73,6 +73,7 @@ Prints the card's name and power limit, a JSON line describing the kernels,
 then, as the last line, {"ok": true, "device": {...}}. Exits non-zero
 without that line when there is no CUDA device or any phase fails.
 """
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -105,7 +106,9 @@ ERR_OUTPUTS = ("x", "z", "y", "Kinv", "carried_rho_scale")
 # inequality rows than one R 4 product covers (74 > 64)
 ROBOT_SHAPES = {(34, 18, 6, 0): "quadruped", (34, 24, 6, 6): "quadruped",
                 (49, 26, 6, 0): "centaur", (49, 32, 6, 6): "centaur",
-                (49, 80, 6, 6): "n 49, 74 inequality rows"}
+                (49, 80, 6, 6): "n 49, 74 inequality rows",
+                (50, 22, 6, 0): "capture", (50, 28, 6, 6): "capture"}
+ROBOTS = ("quadruped", "centaur", "capture")
 FEET = ("foot_fl", "foot_fr", "foot_hr", "foot_hl")
 BACKENDS = ("kernel", "torch")   # level solver: CUDA kernel, plain qp.solve
 # tau of the kernel chain vs the plain chain: float32 sums in another order
@@ -145,6 +148,57 @@ PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES_S = 67e12, 495e12, 3.35e12
 # bars on the NS kernel's time (ms) at each phase 4 shape, printed and not
 # gated: a slow kernel that is right stays
 NS_BARS_MS = (1.0, 0.107, 0.60, None)
+# phase 9: tests/test_capture_step.py on the humanoid. The plugin (6D
+# wrenches in friction cones at mu 0.6, switchable contacts, iters 40; its
+# level shapes, n 50, are the "capture" ROBOT_SHAPES), the single-support
+# set-up (LegLiftScript on l_sole, held 100 ticks past its lift), the shove
+# (base_vel[4] += 1.2 m/s), the plant-fidelity planning horizon (100 steps
+# of 0.01 s in 8 substeps at the plant's stiction) and the candidate library
+CAPTURE_PLUGIN = dict(contact_links=CONTACTS, waist_link="pelvis", iters=40,
+                      switchable_contacts=True, use_friction_cones=True,
+                      mu=0.6, wrench_dim=6, foot_tasks_6d=False)
+CAPTURE_PHASES = dict(settle=150, shift=450, dwell=150, unload=180,
+                      lift=250, hold=600, lower=250, reload=200)
+CAPTURE_SCRIPT = dict(lift_height=0.04, swing_kp=100.0, swing_w=3.0)
+CAPTURE_HOLD_EXTRA, PUSH_VY = 100, 1.2
+CAPTURE_ROLLOUT = dict(horizon=100, qp_iters=30, dt=0.01, sim_substeps=8,
+                       contact_kp=2e4, contact_kd=300.0, contact_kt=2e4,
+                       contact_kd_t=1500.0, stop_kp=2e3, stop_kd=20.0,
+                       fail_tol=0.2)
+CAPTURE_CANDIDATES = {
+    "null": None,   # the primitive's init_theta: keep holding
+    "cross_near": {"swing": [-8.0, 3.0], "t0": -3.0, "dxy": [0.05, 0.05]},
+    "cross_far": {"swing": [-8.0, 3.0], "t0": -3.0, "dxy": [0.05, 0.15]},
+    "replant_down": {"swing": [3.0, -8.0], "t0": -3.0, "dxy": [0.05, 0.10]}}
+# the JAX package's ranking on a CPU, recorded in tests/test_capture_step.py
+CAPTURE_JAX_RANKING = ("cross_near 3482 < cross_far 5029 < replant_down "
+                       "5173 < null 6438")
+# each candidate's cost, level kernel vs plain level solver: float32 sums
+# in another order through 100 chained steps of 8 substeps (the gaps this
+# phase prints on an H100 are in PERF.md); a wrong level solve or gate
+# moves a cost by whole percents and reorders the library
+CAPTURE_COST_RTOL = 5e-2
+# the closed loop: lean-only runs until it falls (up < 0.7), the chosen
+# step fall tick + CAPTURE_STEP_EXTRA ticks, the waist reference pulled
+# halfway to the feet's mean every CAPTURE_WAIST_EVERY ticks; the plant
+# alone timed over CAPTURE_SIM_TICKS ticks
+CAPTURE_MAX_TICKS, CAPTURE_STEP_EXTRA, CAPTURE_WAIST_EVERY = 1300, 200, 40
+FALL_UP, UPRIGHT_UP, STEP_MIN_M, RT_FAIL_SHARE = 0.7, 0.9, 0.05, 0.05
+CAPTURE_SIM_TICKS = 100
+# phase 10: tests/test_mpc_scenarios.py's quadruped (switchable contacts,
+# friction cones at mu 0.5, iters 40) with
+# test_step_recovery_decision_channel's MPPI and rollout settings at
+# bench_mpc.py's 512 samples; theta of the plain plan against the
+# kernel's within MPC_U_ATOL of each entry's scale (1 + |theta|)
+QUAD_MPC_PLUGIN = dict(contact_links=FEET, waist_link="pelvis", iters=40,
+                       switchable_contacts=True, use_friction_cones=True,
+                       mu=0.5, foot_tasks_6d=False)
+STEP_MPPI = dict(n_samples=512, horizon=12, noise_std=0.2,
+                 step_recovery=True, theta_noise_std=1.5, dxy_noise_std=0.1)
+STEP_ROLLOUT = dict(horizon=12, qp_iters=40, dt=0.04, sim_substeps=4, mu=1.3)
+# test_gate_sequence_inside_horizon's rollout, foot_fl ramped off over the
+# first 3 of 8 steps
+GATE_ROLLOUT = dict(horizon=8, qp_iters=20, dt=0.02, sim_substeps=2)
 # one plant step's udot, NS kernel vs plain inverse: float32 rounding through
 # a mass matrix of condition ~1e4 after two refinement steps (the bar of
 # tests/test_torch_sim.py for accelerations); a wrong inverse moves udot by
@@ -776,7 +830,375 @@ def phase_quadruped_loop(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     return launches, ns_launches
 
 
+def stack_level_shapes(plugin, state, refs):
+    """(n, m, head equalities, tail equalities) of each level of the
+    plugin's assembled stack at ``state``."""
+    from qppvm_tpu_torch.model import dynamics
+
+    sd = plugin.stack.build(plugin.model,
+                            dynamics.compute_model_data(plugin.model, state),
+                            state, refs, nx=plugin.opt.size)
+    n = sd.lb.shape[1]
+    m = sd.C.shape[1] + (n if sd.has_box else 0)
+    shapes, tail = [], 0
+    for lv in sd.levels:
+        shapes.append((n, m + tail, sd.n_eq, tail))
+        tail += lv.A.shape[1]
+    return shapes
+
+
+def capture_setup(torch, dev):
+    """tests/test_capture_step.py's single support on the card: the
+    humanoid on SimRobot (dt 1 ms, 2 substeps, the 4-point foot patches),
+    LegLiftScript lifting l_sole, driven t_hold0 + CAPTURE_HOLD_EXTRA
+    ticks at B 1 through the plugin's own profile, every tick gated on
+    the RT solver gate. Returns (plugin, robot, base_refs, warm, offsets)
+    with the waist reference held at the script's shifted target."""
+    from qppvm_tpu_torch.model import zoo
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+    from qppvm_tpu_torch.runtime import robot_interface as ri
+    from qppvm_tpu_torch.runtime.contact_switch import (LegLiftPhases,
+                                                        LegLiftScript)
+    from qppvm_tpu_torch.runtime.rt_loop import FOOT_PATCH
+
+    model = zoo.humanoid(device=dev)
+    plugin = ForceAccPlugin(model, **CAPTURE_PLUGIN)
+    offsets = {c: FOOT_PATCH for c in CONTACTS}
+    robot = ri.SimRobot(model, state=ri.standing_state(model, CONTACTS),
+                        dt=1e-3, substeps=2, contact_links=CONTACTS,
+                        contact_offsets=offsets)
+    refs, warm, waist = plugin.on_start(robot.state)
+    script = LegLiftScript(model, plugin, refs, waist, "l_sole",
+                           state=robot.state,
+                           phases=LegLiftPhases(**CAPTURE_PHASES),
+                           **CAPTURE_SCRIPT)
+    fails = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(script.t_hold0 + CAPTURE_HOLD_EXTRA):
+        st = robot.state
+        tau, warm, aux = plugin.control_loop(st, script.refs_at(i), warm)
+        fails = fails + aux.solver_failed.sum()
+        robot.set_reference(tau_ref=tau, q_ref=st.q)
+        robot.move()
+    if int(fails) != 0:
+        fail(f"capture set-up: {int(fails)} ticks failed the RT gate on the "
+             f"way into single support")
+    base_refs = dict(refs, waist_task=dict(refs["waist_task"], p=script.w1))
+    return plugin, robot, base_refs, warm, offsets, script
+
+
+def capture_candidates(torch, dev, init_theta):
+    """The candidate library as one batch of thetas (K 4), and its names."""
+    names = list(CAPTURE_CANDIDATES)
+    cands = [init_theta() if CAPTURE_CANDIDATES[n] is None else
+             {k: torch.tensor(v, dtype=torch.float32, device=dev)
+              for k, v in CAPTURE_CANDIDATES[n].items()} for n in names]
+    return names, {k: torch.stack([c[k] for c in cands]) for k in cands[0]}
+
+
+def shoved(state):
+    """``state`` shoved sideways: base_vel[4] += PUSH_VY."""
+    bv = state.base_vel.clone()
+    bv[:, 4] += PUSH_VY
+    return dataclasses.replace(state, base_vel=bv)
+
+
+def capture_run(torch, plugin, robot, base_refs, warm, theta, swing, ticks):
+    """Execute ``theta`` (or hold, if None) from the robot's shoved state,
+    the waist reference pulled halfway to the feet's mean every
+    CAPTURE_WAIST_EVERY ticks, as tests/test_capture_step.py's _run.
+    Returns (fall tick or None, up per tick, swing-foot xy at the first
+    and last tick, RT failures, ticks run)."""
+    from qppvm_tpu_torch.model import kinematics
+
+    model = plugin.model
+    span_ticks = int(CAPTURE_ROLLOUT["horizon"] * CAPTURE_ROLLOUT["dt"] * 1e3)
+    feet = [model.link_index(c) for c in CONTACTS]
+    li = model.link_index("r_sole")
+    waist_p = base_refs["waist_task"]["p"]
+    ups, foot_xy, fall_tick = [], [], None
+    rt_fails = torch.zeros((), dtype=torch.int64, device=waist_p.device)
+    for i in range(ticks):
+        state = robot.state
+        if i % CAPTURE_WAIST_EVERY == 0:
+            fm = kinematics.fk(model, state).p[:, feet, :2].mean(dim=1)
+            waist_p = torch.cat([waist_p[:, :2] + 0.5 * (fm - waist_p[:, :2]),
+                                 waist_p[:, 2:]], dim=-1)
+        refs_t = dict(base_refs,
+                      waist_task=dict(base_refs["waist_task"], p=waist_p))
+        if theta is not None and i < span_ticks:
+            refs_t = swing(refs_t, theta, i / span_ticks)
+        tau, warm, aux = plugin.control_loop(state, refs_t, warm)
+        rt_fails = rt_fails + aux.solver_failed.sum()
+        robot.set_reference(tau_ref=tau, q_ref=state.q)
+        robot.move()
+        if i == 0:
+            foot_xy.append(kinematics.fk(model, robot.state).p[0, li, :2])
+        ups.append(float(robot.state.base_rot[0, 2, 2]))
+        if ups[-1] < FALL_UP:
+            fall_tick = i
+            break
+    foot_xy.append(kinematics.fk(model, robot.state).p[0, li, :2])
+    return fall_tick, ups, foot_xy, int(rt_fails), len(ups)
+
+
+def phase_capture(torch, dev, card, hierarchy, level_qp, nsi):
+    """Phase 9: the capture step on the humanoid, as
+    tests/test_capture_step.py runs it: the candidate library rolled out
+    as one batch through the level kernel and through the plain level
+    solver, then lean-only and the chosen step executed on the plant.
+    Returns ({path: level launches}, {path: NS launches})."""
+    from qppvm_tpu_torch.mpc import rollout as ro
+    from qppvm_tpu_torch.mpc.sampling import expand_batch
+
+    t0 = time.perf_counter()
+    plugin, robot, base_refs, warm, offsets, script = capture_setup(torch,
+                                                                    dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    shapes = stack_level_shapes(plugin, robot.state, base_refs)
+    if any(ROBOT_SHAPES.get(s) != "capture" for s in shapes):
+        fail(f"capture stack level shapes {shapes} are not phase 2's "
+             f"'capture' shapes")
+    snap = (robot.state, robot._anchors)
+    swing, init_theta = ro.make_swing_primitive(
+        plugin, span_s=CAPTURE_ROLLOUT["horizon"] * CAPTURE_ROLLOUT["dt"])
+    term = ro.make_capture_terminal_cost(plugin)
+    names, thetas = capture_candidates(torch, dev, init_theta)
+    K, H = len(names), CAPTURE_ROLLOUT["horizon"]
+    st_k, refs_k, warm_k = expand_batch(shoved(snap[0]), base_refs, warm, K)
+    U0 = torch.zeros((K, H, 3), device=dev)
+    scen = {"push": torch.zeros((K, H, 3), device=dev)}
+    costs, times = {}, {}
+    for backend in BACKENDS:
+        roll = ro.make_rollout_fn(
+            plugin, ro.RolloutConfig(**CAPTURE_ROLLOUT, qp_backend=backend),
+            ro.default_cost, swing=swing, terminal_cost=term,
+            contact_offsets=offsets)
+        level_qp.launches = 0
+        hierarchy.fallbacks = 0
+        nsi.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, health = roll(st_k, refs_k, warm_k, U0, scen, thetas)
+        torch.cuda.synchronize()
+        times[backend] = (time.perf_counter() - t0) * 1e3
+        costs[backend] = c
+        if backend == "kernel":
+            plan_launches = (level_qp.launches, nsi.launches)
+            if (level_qp.launches != len(shapes) * H
+                    or hierarchy.fallbacks != 0 or nsi.launches != 1):
+                fail(f"capture plan: {level_qp.launches} level launches, "
+                     f"{hierarchy.fallbacks} fallbacks, {nsi.launches} NS "
+                     f"launches; expected {len(shapes) * H}, 0, 1")
+        if not bool(torch.isfinite(c).all()):
+            fail(f"capture plan ({backend}): costs {c.tolist()}")
+        print(f"capture plan ({backend} level solver): "
+              + ", ".join(f"{n} {float(v):.6g}" for n, v in zip(names, c))
+              + f"; prim_res_max {health['prim_res_max'].tolist()}, "
+              f"solver_failed {health['solver_failed'].tolist()}")
+    ck, ct = costs["kernel"], costs["torch"]
+    gap = float(((ck - ct).abs() / ct.abs()).max())
+    best = {b: names[int(torch.argmin(costs[b]))] for b in BACKENDS}
+    rank = {b: " < ".join(f"{names[i]} {float(costs[b][i]):.0f}"
+                          for i in torch.argsort(costs[b]).tolist())
+            for b in BACKENDS}
+    print(f"capture plan ranking: kernel {rank['kernel']}; plain "
+          f"{rank['torch']}; the JAX package on a CPU "
+          f"{CAPTURE_JAX_RANKING}; kernel vs plain largest relative cost gap "
+          f"{gap:.3g} (bar {CAPTURE_COST_RTOL})")
+    i_best = names.index("cross_near")
+    for b in BACKENDS:
+        c = costs[b]
+        if best[b] != "cross_near" or not (
+                c[names.index("null")] > c[i_best]
+                and c[names.index("replant_down")] > c[i_best]):
+            fail(f"capture plan ({b}): argmin {best[b]}, ranking {rank[b]}; "
+                 f"expected cross_near below null and replant_down")
+    if not gap <= CAPTURE_COST_RTOL:
+        fail(f"capture plan: kernel and plain costs {gap:.3g} apart "
+             f"(relative), bar {CAPTURE_COST_RTOL}")
+    print(f"[{card}] capture plan, K={K} x {H} steps x "
+          f"{CAPTURE_ROLLOUT['sim_substeps']} substeps: level kernel "
+          f"{times['kernel']:.1f} ms, plain level solver {times['torch']:.1f} "
+          f"ms (set-up into single support {setup_s:.1f} s, "
+          f"{script.t_hold0 + CAPTURE_HOLD_EXTRA} ticks)")
+
+    # ---- execution: lean-only, then the chosen step, from the snapshot
+    robot.state = shoved(snap[0])
+    fall_lean, ups_lean, _, _, _ = capture_run(
+        torch, plugin, robot, base_refs, warm, None, swing,
+        CAPTURE_MAX_TICKS)
+    if fall_lean is None:
+        fail(f"capture: lean-only did not fall in {CAPTURE_MAX_TICKS} ticks "
+             f"(up {ups_lean[-1]:.3f})")
+    robot.state, robot._anchors = shoved(snap[0]), snap[1]
+    theta_c = {k: v[i_best:i_best + 1] for k, v in thetas.items()}
+    ticks = fall_lean + CAPTURE_STEP_EXTRA
+    level_qp.launches = 0
+    hierarchy.fallbacks = 0
+    nsi.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fall_step, ups_step, foot_xy, rt_fails, ran = capture_run(
+        torch, plugin, robot, base_refs, warm, theta_c, swing, ticks)
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) / ran * 1e3
+    loop_launches = (level_qp.launches, nsi.launches)
+    step_len = float(torch.linalg.norm(foot_xy[-1] - foot_xy[0]))
+    up_at = ups_step[fall_lean] if fall_lean < len(ups_step) else None
+    print(f"capture loop: lean-only fell at tick {fall_lean}; the chosen "
+          f"step (cross_near) ran {ran} ticks, fall "
+          f"{fall_step}, up at lean's fall tick {up_at}, swing foot moved "
+          f"{step_len:.4f} m, {rt_fails} RT failures, "
+          f"{loop_launches[0]} level launches (the plugin's profile runs "
+          f"the plain level solver), {loop_launches[1]} NS launches")
+    if nsi.launches != robot.substeps * ran:
+        fail(f"capture loop: {nsi.launches} NS launches, expected "
+             f"{robot.substeps} per tick ({robot.substeps * ran})")
+    if not step_len > STEP_MIN_M:
+        fail(f"capture loop: the swing foot moved {step_len:.4f} m")
+    if not (fall_step is None or fall_step > fall_lean + 150):
+        fail(f"capture loop: the step fell at tick {fall_step}, lean-only "
+             f"at {fall_lean}")
+    if up_at is None or not up_at > UPRIGHT_UP:
+        fail(f"capture loop: up {up_at} at lean-only's fall tick")
+    if not rt_fails < RT_FAIL_SHARE * ticks:
+        fail(f"capture loop: {rt_fails} RT failures in {ticks} ticks")
+    robot.state, robot._anchors = snap
+    robot.set_reference(tau_ref=torch.zeros_like(robot.state.q))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CAPTURE_SIM_TICKS):
+        robot.move()
+    torch.cuda.synchronize()
+    sim_ms = (time.perf_counter() - t0) / CAPTURE_SIM_TICKS * 1e3
+    print(f"[{card}] capture closed loop B=1: {tick_ms:.3f} ms per tick, "
+          f"plant alone {sim_ms:.3f} ms per tick ({robot.substeps} "
+          f"substeps)")
+    return ({"capture_plan_b4": plan_launches[0],
+             "capture_loop_b1": loop_launches[0]},
+            {"capture_plan_b4": plan_launches[1],
+             "capture_loop_b1": loop_launches[1]})
+
+
+def phase_step_recovery(torch, dev, card, hierarchy, level_qp, nsi, zoo):
+    """Phase 10: MPPI with the step-recovery channel on the quadruped at
+    512 samples, through the level kernel; the same samples through the
+    plain level solver; one gate_seq rollout at K 512. Returns the level
+    and NS launches of the timed plans."""
+    from qppvm_tpu_torch.mpc import rollout as ro
+    from qppvm_tpu_torch.mpc.sampling import (MPPIConfig, SamplingMPC,
+                                              expand_batch)
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+
+    model = zoo.quadruped(device=dev)
+    plugin = ForceAccPlugin(model, **QUAD_MPC_PLUGIN)
+    st = ro.standing_state(model, FEET)
+    refs, warm, _ = plugin.on_start(st)
+    mpc = {b: SamplingMPC(plugin, MPPIConfig(**STEP_MPPI),
+                          ro.RolloutConfig(**STEP_ROLLOUT, qp_backend=b))
+           for b in BACKENDS}
+    H, N = STEP_MPPI["horizon"], STEP_MPPI["n_samples"]
+    g = torch.Generator(device=dev).manual_seed(0)
+    U, theta = mpc["kernel"].init_plan(), mpc["kernel"].init_theta()
+
+    def plans(reps, U, theta):
+        level_qp.launches = 0
+        hierarchy.fallbacks = 0
+        nsi.launches = 0
+        for _ in range(reps):
+            (U, theta), info = mpc["kernel"].plan_step(g, st, refs, warm, U,
+                                                       theta)
+            ff = float(info["solver_fail_frac"])
+            if ff != 0.0 or not bool(torch.isfinite(info["costs"]).all()):
+                fail(f"step-recovery plan: solver_fail_frac {ff}, costs "
+                     f"finite {bool(torch.isfinite(info['costs']).all())}")
+        torch.cuda.synchronize()
+        counts = (level_qp.launches, hierarchy.fallbacks, nsi.launches)
+        if counts != (2 * H * reps, 0, reps):
+            fail(f"step-recovery plans: (level launches, fallbacks, NS "
+                 f"launches) {counts}, expected {(2 * H * reps, 0, reps)}")
+        return U, theta, info, counts
+
+    U, theta, _, _ = plans(1, U, theta)            # untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U, theta, info, counts = plans(MPC_REPS, U, theta)
+    plan_ms = (time.perf_counter() - t0) / MPC_REPS * 1e3
+    print(f"step-recovery MPPI: {N} samples x {H} steps, {counts[0]} level "
+          f"and {counts[2]} NS launches over {MPC_REPS} plans, 0 fallbacks, "
+          f"solver_fail_frac 0.0, cost_min {float(info['cost_min']):.6g}, "
+          f"ess {float(info['ess']):.1f}, theta "
+          + ", ".join(f"{k} {v.tolist()}" for k, v in theta.items()))
+    print(f"[{card}] step-recovery MPPI plan step: {plan_ms:.3f} ms, "
+          f"{N * H / plan_ms * 1e3:.1f} QP solves/s")
+
+    for d in range(MPC_DRAWS):
+        U_s, scen, th = mpc["kernel"].sample(g, U, theta)
+        (U, theta), inf_k = mpc["kernel"].update(st, refs, warm, U_s, scen,
+                                                 th)
+        (U_t, theta_t), inf_t = mpc["torch"].update(st, refs, warm, U_s,
+                                                    scen, th)
+        if not torch.equal(inf_k["solver_failed"], inf_t["solver_failed"]):
+            fail(f"step-recovery draw {d}: solver_failed flags differ")
+        ck, ct = inf_k["costs"], inf_t["costs"]
+        gap = (ck - ct).abs()
+        bar = MPC_COST_ATOL + MPC_COST_RTOL * ct.abs()
+        worst = int(torch.argmax(gap / bar))
+        u_err = float((U - U_t).abs().max())
+        th_err = max(float(((theta[k] - theta_t[k]).abs()
+                            / (1.0 + theta_t[k].abs())).max())
+                     for k in theta)
+        print(f"step-recovery draw {d} on the same samples, level kernel vs "
+              f"plain level solver: cost max abs diff {float(gap.max()):.3g}, "
+              f"max rel diff {float((gap / ct.abs()).max()):.3g}, U_new max "
+              f"abs diff {u_err:.3g}, theta_new max diff over (1 + |theta|) "
+              f"{th_err:.3g} (atol {MPC_U_ATOL}), solver_failed flags equal")
+        if not torch.all(gap <= bar):
+            fail(f"step-recovery draw {d}: sample {worst} costs "
+                 f"{float(ck[worst])} (kernel) vs {float(ct[worst])} (plain)")
+        if not (u_err <= MPC_U_ATOL and th_err <= MPC_U_ATOL):
+            fail(f"step-recovery draw {d}: U_new / theta_new differ from the "
+                 f"plain plan's by {u_err:.3g} / {th_err:.3g}")
+
+    roll = ro.make_rollout_fn(plugin, ro.RolloutConfig(
+        **GATE_ROLLOUT, qp_backend="kernel"), ro.default_cost)
+    Hg = GATE_ROLLOUT["horizon"]
+    gate_seq = torch.ones((N, Hg, len(FEET)), device=dev)
+    gate_seq[:, :, 0] = torch.clamp(
+        1.0 - torch.arange(Hg, device=dev) / 3.0, 0.0, 1.0)
+    st_n, refs_n, warm_n = expand_batch(st, refs, warm, N)
+    level_qp.launches = 0
+    hierarchy.fallbacks = 0
+    cost, health = roll(st_n, refs_n, warm_n, torch.zeros((N, Hg, 3),
+                                                          device=dev),
+                        {"push": torch.zeros((N, Hg, 3), device=dev),
+                         "gate_seq": gate_seq})
+    torch.cuda.synchronize()
+    n_failed = int(health["solver_failed"].sum())
+    print(f"gate_seq rollout, foot_fl ramped off mid-horizon, K={N} x {Hg} "
+          f"steps: {level_qp.launches} level launches, "
+          f"{hierarchy.fallbacks} fallbacks, {n_failed} failed samples, "
+          f"cost {float(cost.min()):.6g} to {float(cost.max()):.6g}")
+    if (n_failed or not bool(torch.isfinite(cost).all())
+            or level_qp.launches != 2 * Hg or hierarchy.fallbacks):
+        fail("gate_seq rollout: unhealthy, non-finite or off the kernel")
+    return counts[0], counts[2]
+
+
+def parse_phases(argv):
+    """The phases to run: every one, or those ``--phases 9,10`` lists
+    (the build always runs; the kernels line and the last line are printed
+    only when every phase ran)."""
+    if not argv:
+        return set(range(2, 11))
+    if len(argv) != 2 or argv[0] != "--phases":
+        sys.exit("usage: python3 chip_smoke.py [--phases 2,...,10]")
+    return {int(p) for p in argv[1].split(",")}
+
+
 def main():
+    phases = parse_phases(sys.argv[1:])
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; nothing run")
@@ -804,6 +1226,46 @@ def main():
         if log.exists():
             print(log.read_text().strip())
     print(card)
+
+    run = {}
+    if 2 in phases:
+        run.update(phase_levels(torch, dev, card, parity, level_qp))
+    if 3 in phases:
+        run.update(phase_main_path(torch, dev, card, hierarchy, level_qp,
+                                   zoo))
+    if 4 in phases:
+        # ---- 4. NS-inverse path --------------------------------------------
+        run["ns_row"] = phase_ns_inverse(torch, dev, card)
+    if 5 in phases:
+        run["loop"] = phase_closed_loop(torch, dev, card, hierarchy,
+                                        level_qp, ns_inverse)
+    if 6 in phases:
+        run["mpc"] = phase_mpc(torch, dev, card, hierarchy, level_qp,
+                               ns_inverse)
+    if 7 in phases:
+        run["centaur"] = phase_centaur_tick(torch, dev, card, hierarchy,
+                                            level_qp, ns_inverse, zoo)
+    if 8 in phases:
+        run["quad"] = phase_quadruped_loop(torch, dev, card, hierarchy,
+                                           level_qp, ns_inverse, zoo)
+    if 9 in phases:
+        # ---- 9. the capture step on the humanoid ---------------------------
+        run["capture"] = phase_capture(torch, dev, card, hierarchy,
+                                       level_qp, ns_inverse)
+    if 10 in phases:
+        # ---- 10. MPPI's step-recovery channel on the quadruped -------------
+        run["step"] = phase_step_recovery(torch, dev, card, hierarchy,
+                                          level_qp, ns_inverse, zoo)
+    print(card)
+    if phases != set(range(2, 11)):
+        print(f"chip_smoke: phases {sorted(phases)} passed; no kernels line")
+        return
+    print_kernels_line(torch, run)
+
+
+def phase_levels(torch, dev, card, parity, level_qp):
+    """Phase 2: the level kernel against its plain version, timed."""
+    from qppvm_tpu_torch.mpc.humanoid_plan import N_SAMPLES
 
     # ---- 2. level kernel vs plain version ----------------------------------
     max_err, level_ms, level_bound = 0.0, [], []
@@ -855,8 +1317,14 @@ def main():
 
     err, robot_level_ms = phase_robot_levels(torch, dev, card, parity,
                                              level_qp)
-    max_err = max(max_err, err)
+    return {"max_err": max(max_err, err), "level_ms": level_ms,
+            "level_bound": level_bound, "level_ms_b1": level_ms_b1,
+            "level_ms_rollout": level_ms_rollout,
+            "robot_level_ms": robot_level_ms}
 
+
+def phase_main_path(torch, dev, card, hierarchy, level_qp, zoo):
+    """Phase 3: the humanoid's batched tick through the level kernel."""
     # ---- 3. main path -------------------------------------------------------
     plugins, states, refs_b, warm_b = main_path_inputs(
         torch, dev, zoo.humanoid(device=dev), CONTACTS)
@@ -883,34 +1351,32 @@ def main():
         print(f"[{card}] batched tick B={B} ({backend} level solver): median "
               f"{statistics.median(times):.3f} ms over {REPS} reps "
               f"(min {min(times):.3f}, max {max(times):.3f})")
+    return {"launches": launches}
 
-    # ---- 4. NS-inverse path ------------------------------------------------
-    ns_row = phase_ns_inverse(torch, dev, card)
 
-    # ---- 5. closed loop ----------------------------------------------------
-    loop_launches, loop_ns = phase_closed_loop(torch, dev, card, hierarchy,
-                                               level_qp, ns_inverse)
-
-    # ---- 6. MPC plan -------------------------------------------------------
-    mpc_launches, mpc_ns = phase_mpc(torch, dev, card, hierarchy, level_qp,
-                                     ns_inverse)
-
-    # ---- 7. the centaur's batched tick -------------------------------------
-    centaur_launches, centaur_ns = phase_centaur_tick(
-        torch, dev, card, hierarchy, level_qp, ns_inverse, zoo)
-
-    # ---- 8. the quadruped's closed loop ------------------------------------
-    quad_launches, quad_ns = phase_quadruped_loop(
-        torch, dev, card, hierarchy, level_qp, ns_inverse, zoo)
+def print_kernels_line(torch, run):
+    """The kernels JSON line from every phase's results, then the last
+    line."""
+    max_err, level_ms = run["max_err"], run["level_ms"]
+    level_bound, level_ms_b1 = run["level_bound"], run["level_ms_b1"]
+    level_ms_rollout = run["level_ms_rollout"]
+    robot_level_ms, launches = run["robot_level_ms"], run["launches"]
+    (loop_launches, loop_ns), (mpc_launches, mpc_ns) = run["loop"], run["mpc"]
+    centaur_launches, centaur_ns = run["centaur"]
+    quad_launches, quad_ns = run["quad"]
+    capture_levels, capture_ns = run["capture"]
+    step_launches, step_ns = run["step"]
+    ns_row = run["ns_row"]
     ns_row["launches_by_path"] = {"ns_path": ns_row["launches"],
                                   "closed_loop_b1": loop_ns,
                                   "mpc_plans": mpc_ns,
                                   "centaur_tick_b1024": centaur_ns,
-                                  "quadruped_loop_b1": quad_ns}
+                                  "quadruped_loop_b1": quad_ns,
+                                  **capture_ns,
+                                  "mppi_step_recovery_b512": step_ns}
 
     b_ms, b_by = bound_ms(sum(f for f, _ in level_bound),
                           sum(b for _, b in level_bound))
-    print(card)
     print(json.dumps({"kernels": [{
         "name": "level_qp", "route": "cuda",
         "source": "qppvm_tpu_torch/csrc/level_qp.cu",
@@ -923,12 +1389,14 @@ def main():
         **{f"ms_{robot}_b{Bl}": sum(
             robot_level_ms[shape, Bl][0]
             for shape, r in ROBOT_SHAPES.items() if r == robot)
-           for robot in ("quadruped", "centaur") for Bl in (B, 1)},
+           for robot in ROBOTS for Bl in (B, 1)},
         "launches_by_path": {"batched_tick": launches,
                              "closed_loop_b1": loop_launches,
                              "mpc_plans": mpc_launches,
                              "centaur_tick_b1024": centaur_launches,
-                             "quadruped_loop_b1": quad_launches}},
+                             "quadruped_loop_b1": quad_launches,
+                             **capture_levels,
+                             "mppi_step_recovery_b512": step_launches}},
         ns_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -297,8 +297,7 @@ def compute_model_data(model: RobotModel, state: RobotState) -> ModelData:
     M = mass_matrix(model, state, kin=kin)
     h = nonlinear_term(model, state, kin=kin)
     J_all = kinematics.all_link_jacobians(model, kin)
-    u = state.u if model.floating else state.qd
-    vel_all = torch.einsum("bnrv,bv->bnr", J_all, u)
+    vel_all = kinematics.link_velocities(model, kin, state, J_all)
     bias_all = kinematics.bias_accelerations(model, kin, state)
     total_mass, com_pos = kinematics.com(model, kin)
     return ModelData(kin=kin, B=M, h=h, J_all=J_all, vel_all=vel_all,

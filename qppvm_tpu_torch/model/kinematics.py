@@ -213,6 +213,15 @@ def com(model: RobotModel, kin: KinData):
     return total, weighted / torch.clamp(total, min=1e-12)[:, None]
 
 
+def link_velocities(model: RobotModel, kin: KinData, state: RobotState,
+                    J_all=None):
+    """(B, nj, 6) world twist [v; w] of each link origin = J_all u (qd on a
+    fixed base); ``J_all`` reuses Jacobians already computed at ``kin``."""
+    J = all_link_jacobians(model, kin) if J_all is None else J_all
+    u = state.u if model.floating else state.qd
+    return torch.einsum("bnrv,bv->bnr", J, u)
+
+
 def com_velocity(model: RobotModel, kin: KinData, state: RobotState, vel_all):
     """Measured CoM velocity (B, 3): mass-weighted average of per-link CoM
     point velocities; ``vel_all`` (B, nj, 6) linear-first link twists."""

@@ -1,16 +1,14 @@
 """Sampling MPC (MPPI) over batched WBC rollouts (port of
 qppvm_tpu/mpc/sampling.py, one device, no mesh).
 
-``SamplingMPC.sample`` draws the perturbed plans and the domain
-randomization from an explicit ``torch.Generator``; ``update`` rolls every
-sample out (the sample axis is the rollouts' batch) and takes the MPPI
-average. The two are separate so that callers, the tests among them, can
-feed the update samples drawn elsewhere. Every reduction over samples
-(min, softmax weights, argmin) is over the leading axis.
-
-Not ported yet (ROADMAP queue 1 item 2): ``step_recovery`` (the swing
-primitive's decision channel); the reference's mesh sharding has no
-counterpart on one card.
+``SamplingMPC.sample`` draws the perturbed plans, the domain
+randomization and, with ``step_recovery``, the footstep decisions theta
+from an explicit ``torch.Generator``; ``update`` rolls every sample out
+(the sample axis is the rollouts' batch) and takes the MPPI average. The
+two are separate so that callers, the tests among them, can feed the
+update samples drawn elsewhere. Every reduction over samples (min, softmax
+weights, argmin) is over the leading axis. The reference's mesh sharding
+has no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -20,8 +18,9 @@ from typing import Optional
 import torch
 
 from qppvm_tpu_torch.model.robot import RobotState
-from qppvm_tpu_torch.mpc.rollout import (NOT_PORTED, RolloutConfig,
-                                         default_cost, make_rollout_fn)
+from qppvm_tpu_torch.mpc.rollout import (THETA_KEYS, RolloutConfig,
+                                         default_cost, make_rollout_fn,
+                                         make_swing_primitive)
 from qppvm_tpu_torch.opt.qp import QPState
 
 
@@ -36,6 +35,8 @@ class MPPIConfig:
     # scale (uniform in [1 - mu_scale_range, 1]); 0 disables
     mass_scale_std: float = 0.0
     mu_scale_range: float = 0.0
+    # footstep recovery: sample and average the swing primitive's decision
+    # theta beside the waist plan (noise std of its logits and of dxy)
     step_recovery: bool = False
     theta_noise_std: float = 1.0
     dxy_noise_std: float = 0.08
@@ -61,27 +62,33 @@ def expand_batch(state: RobotState, refs, warm, K: int):
 
 
 class SamplingMPC:
-    """MPPI controller: perturb the nominal waist-velocity plan, roll out the
-    full WBC-in-the-loop dynamics per sample, average exponentially."""
+    """MPPI controller: perturb the nominal waist-velocity plan (and, with
+    ``step_recovery``, the footstep decision theta), roll out the full
+    WBC-in-the-loop dynamics per sample, average exponentially."""
 
     def __init__(self, plugin, mppi: MPPIConfig,
                  rollout_cfg: Optional[RolloutConfig] = None,
                  cost_fn=default_cost, contact_offsets=None):
-        if mppi.step_recovery:
-            raise NotImplementedError(f"step_recovery: {NOT_PORTED}")
         self.plugin = plugin
         self.mppi = mppi
         self.rcfg = rollout_cfg or RolloutConfig(horizon=mppi.horizon)
+        self.swing, self.init_theta = None, None
+        if mppi.step_recovery:
+            self.swing, self.init_theta = make_swing_primitive(
+                plugin, span_s=self.rcfg.horizon * self.rcfg.dt)
         self.rollout = make_rollout_fn(plugin, self.rcfg, cost_fn,
+                                       swing=self.swing,
                                        contact_offsets=contact_offsets)
 
     def init_plan(self, dtype=torch.float32):
         return torch.zeros((self.mppi.horizon, self.mppi.nu), dtype=dtype,
                            device=self.plugin.device)
 
-    def sample(self, generator: torch.Generator, U_nom):
+    def sample(self, generator: torch.Generator, U_nom, theta_nom=None):
         """(U (K, H, nu), scenario) for one plan step, drawn from
-        ``generator`` (on U_nom's device)."""
+        ``generator`` (on U_nom's device); with a nominal ``theta_nom``
+        (unbatched, as ``init_theta`` gives it) also the sampled thetas,
+        (U, scenario, theta), drawn after the rest in THETA_KEYS order."""
         m = self.mppi
         K = m.n_samples
         kw = dict(generator=generator, dtype=U_nom.dtype,
@@ -93,17 +100,27 @@ class SamplingMPC:
                 m.mass_scale_std * torch.randn(K, **kw))
         if m.mu_scale_range > 0.0:
             scenario["mu_scale"] = 1.0 - m.mu_scale_range * torch.rand(K, **kw)
-        return U, scenario
+        if theta_nom is None:
+            return U, scenario
+        theta = {}
+        for k in THETA_KEYS:
+            v = theta_nom[k]
+            std = m.dxy_noise_std if k == "dxy" else m.theta_noise_std
+            theta[k] = v[None] + std * torch.randn(K, *v.shape, **kw)
+        return U, scenario, theta
 
-    def update(self, state, refs, warm, U, scenario):
+    def update(self, state, refs, warm, U, scenario, theta=None):
         """The MPPI update from given samples: ``state``/``refs``/``warm``
-        of batch 1, ``U`` (K, H, nu), ``scenario`` as the rollout takes it.
-        Returns (U_new (H, nu), info); info stays on the device, and its
-        ``costs`` (K,) holds each sample's cost, failure penalty included."""
+        of batch 1, ``U`` (K, H, nu), ``scenario`` as the rollout takes it,
+        ``theta`` the sampled footstep decisions (step_recovery). Returns
+        (U_new (H, nu), info), or ((U_new, theta_new), info) with theta;
+        info stays on the device, its ``costs`` (K,) holds each sample's
+        cost, failure penalty included, and with theta its
+        ``theta_best`` the best sample's decision."""
         m = self.mppi
         K = U.shape[0]
         st, rf, w = expand_batch(state, refs, warm, K)
-        costs, health = self.rollout(st, rf, w, U, scenario)
+        costs, health = self.rollout(st, rf, w, U, scenario, theta)
         failed = health["solver_failed"]
         costs = torch.where(torch.isfinite(costs), costs,
                             torch.full_like(costs, m.fail_penalty))
@@ -124,13 +141,27 @@ class SamplingMPC:
             "solver_failed": failed,
             "costs": costs,
         }
-        return U_new, info
+        if theta is None:
+            return U_new, info
+        # the exponential average of a step-or-not decision is mushy; the
+        # best sample's decision is surfaced for callers to act on
+        theta_new = {k: torch.einsum("k,k...->...", wts, v)
+                     for k, v in theta.items()}
+        info["theta_best"] = {k: v[best] for k, v in theta.items()}
+        return (U_new, theta_new), info
 
     def plan(self, generator: torch.Generator, state, refs, warm, U_nom):
         """One MPC re-planning step. Returns (U_new, info); the first row
         of U_new is the control applied this tick."""
         U, scenario = self.sample(generator, U_nom)
         return self.update(state, refs, warm, U, scenario)
+
+    def plan_step(self, generator: torch.Generator, state, refs, warm, U_nom,
+                  theta_nom):
+        """Re-plan with the footstep-recovery channel (step_recovery):
+        ((U_new, theta_new), info)."""
+        U, scenario, theta = self.sample(generator, U_nom, theta_nom)
+        return self.update(state, refs, warm, U, scenario, theta)
 
     @staticmethod
     def shift_plan(U):

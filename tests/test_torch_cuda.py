@@ -24,7 +24,8 @@ why and how).
 Level kernel at the ForceAccExample robots' shapes: the quadruped's
 reference stack (n 34), the centaur's with friction cones (n 49, the
 R = 4 instantiation) and an n 49 level with more inequality rows than one
-R = 4 product covers, at B 1 and 37.
+R = 4 product covers, at B 1 and 37; the capture step's stack (the
+humanoid with 6D wrenches in friction cones, n 50) at B 1 and 37.
 
 NS-inverse kernel (3xTF32 on the tensor cores): SPD batches K = M M^T +
 0.5 I at n 1 to 139 (inside one 16 x 8 mma tile, on and off the tile
@@ -35,8 +36,10 @@ with non-finite items, which stay non-finite where the plain version is
 without touching the others.
 
 The plant's mass-matrix inverse routing (float32 to the NS kernel, float64
-to the plain NS, counted) and one batched tick of the centaur with friction
-cones, level kernel against plain level solver.
+to the plain NS, counted), one batched tick of the centaur with friction
+cones, and one rollout of the quadruped with switchable cones, a swing
+decision per sample and a gate_seq (K 37, H 2), level kernel against plain
+level solver.
 """
 import pytest
 import torch
@@ -67,6 +70,7 @@ LEVEL_CASES = [(*s, 256, "own") for s in SHAPES] + [
     (34, 18, 6, 0), (34, 24, 6, 6),    # the quadruped's reference stack
     (49, 26, 6, 0), (49, 32, 6, 6),    # the centaur's with friction cones
     (49, 80, 6, 6),                    # more rows than one R 4 product (64)
+    (50, 22, 6, 0), (50, 28, 6, 6),    # the capture step's 6D cone stack
 ] for Bs in (1, 37)]
 
 
@@ -284,3 +288,55 @@ def test_centaur_tick_kernel_matches_plain(device):
     assert bool((f[..., :2].abs() <= 0.7 / 2 ** 0.5 * f[..., 2:]
                  + 1e-3).all())
     assert bool((f[..., 2] >= 10.0 - 1e-3).all())
+
+
+def test_swing_gate_rollout_kernel_matches_plain(device):
+    """One rollout of the quadruped with switchable friction cones (K 37,
+    H 2): a swing decision per sample, foot_fl gated off over the horizon
+    in every other sample, through the level kernel against the same
+    rollout through the plain level solver: each sample's cost within
+    chip_smoke.py's MPC bars (1e-3 + 1e-3 relative), the same failure
+    flags, 2 launches a step and no fallback."""
+    from qppvm_tpu_torch.model import zoo
+    from qppvm_tpu_torch.mpc import rollout
+    from qppvm_tpu_torch.mpc.sampling import expand_batch
+    from qppvm_tpu_torch.opt import hierarchy
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+
+    K, H = 37, 2
+    feet = ("foot_fl", "foot_fr", "foot_hr", "foot_hl")
+    model = zoo.quadruped(device=device)
+    plugin = ForceAccPlugin(model, contact_links=feet, iters=40,
+                            switchable_contacts=True,
+                            use_friction_cones=True, mu=0.5,
+                            foot_tasks_6d=False)
+    st = rollout.standing_state(model, feet)
+    refs, warm, _ = plugin.on_start(st)
+    g = torch.Generator(device=device).manual_seed(0)
+    theta = {"swing": 3.0 * torch.randn(K, 4, generator=g, device=device),
+             "t0": torch.randn(K, generator=g, device=device) - 2.0,
+             "dxy": 0.1 * torch.randn(K, 2, generator=g, device=device)}
+    gate_seq = torch.ones(K, H, 4, device=device)
+    gate_seq[::2, :, 0] = torch.tensor([0.5, 0.0], device=device)
+    scen = {"push": 20.0 * torch.randn(K, H, 3, generator=g, device=device),
+            "gate_seq": gate_seq}
+    U = 0.2 * torch.randn(K, H, 3, generator=g, device=device)
+    out = []
+    for backend in ("kernel", "torch"):
+        cfg = rollout.RolloutConfig(horizon=H, qp_iters=20, dt=0.04,
+                                    sim_substeps=2, mu=1.3,
+                                    qp_backend=backend)
+        swing, _ = rollout.make_swing_primitive(plugin, span_s=H * cfg.dt)
+        roll = rollout.make_rollout_fn(plugin, cfg, rollout.default_cost,
+                                       swing=swing)
+        level_qp.launches = 0
+        hierarchy.fallbacks = 0
+        out.append(roll(*expand_batch(st, refs, warm, K), U, scen, theta))
+        torch.cuda.synchronize()
+        if backend == "kernel":
+            assert (level_qp.launches, hierarchy.fallbacks) == (2 * H, 0)
+    (cost, health), (cost_ref, health_ref) = out
+    assert bool(torch.isfinite(cost).all())
+    assert torch.equal(health["solver_failed"], health_ref["solver_failed"])
+    assert bool(((cost - cost_ref).abs()
+                 <= 1e-3 + 1e-3 * cost_ref.abs()).all())

@@ -16,6 +16,7 @@ torques to 1e-3 of their scale (about 0.04 Nm on a 40 Nm knee torque), a
 hundredth of what a wrong task row or contact Jacobian would move them.
 """
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -88,33 +89,27 @@ def jax_side():
                 prim, dual, ordered=True)
         return prim, dual
 
+    # on_start is traced with the recorders in place; the tick and the CoM
+    # rows without them. The three programs then compile side by side.
     with pytest.MonkeyPatch.context() as mp:
         # validate() reads the stack on the host, which jit cannot; the
         # port runs the same check in its own on_start
         mp.setattr(JAutoStack, "validate", staticmethod(lambda *a, **k: None))
         mp.setattr(jqp, "_polish", record_polish)
         mp.setattr(jqp, "_rel_residuals", record_residuals)
-        refs, warm, waist = jax.jit(plugin.on_start)(st)
-        jax.block_until_ready(warm)
-        jax.effects_barrier()
+        start = jax.jit(plugin.on_start).lower(st)
+        refs_s, warm_s, _ = jax.eval_shape(plugin.on_start, st)
 
     # the batch: the standing state with q perturbed by 0.01 N(0, 1)
     states = _batched(_np(st))
     states = dataclasses.replace(states, q=states.q + 0.01 * np.random.default_rng(
         0).normal(size=(B, jm.nj)))
     jstates = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), states)
-    refs_b, warm_b = _batched(_np(refs)), _batched(_np(warm))
 
     def tick(s, r, w):   # the tick, plus its StackData for the stack test
         stack = plugin.stack.build(jm, jdyn.compute_model_data(jm, s), s, r,
                                    nx=plugin.opt.size, dtype=jnp.float32)
         return plugin._step_impl(s, r, w), stack
-
-    step = jax.jit(jax.vmap(tick))
-    ticks, w = [], warm_b
-    for _ in range(2):
-        (tau, w, aux), stack = step(jstates, refs_b, w)
-        ticks.append(_np((tau, w, aux)))
 
     # the CoM task is kept out of the default stack: its rows alone, at the
     # tick states given random joint and base velocities (its D term)
@@ -122,6 +117,8 @@ def jax_side():
     com_states = dataclasses.replace(
         states, qd=0.3 * rng.normal(size=(B, jm.nj)),
         base_vel=0.3 * rng.normal(size=(B, 6)))
+    jcom_states = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32),
+                               com_states)
 
     def com_rows(s, r):
         ctx = JAssembleCtx(model=jm, data=jdyn.compute_model_data(jm, s),
@@ -129,8 +126,24 @@ def jax_side():
                            dtype=jnp.float32)
         return plugin.com_task.assemble(ctx)
 
-    com = jax.jit(jax.vmap(com_rows))(
-        jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), com_states), refs_b)
+    batched = lambda tree: jax.tree.map(  # noqa: E731
+        lambda a: jax.ShapeDtypeStruct((B,) + a.shape, a.dtype), tree)
+    lowered = (start,
+               jax.jit(jax.vmap(tick)).lower(jstates, batched(refs_s),
+                                             batched(warm_s)),
+               jax.jit(jax.vmap(com_rows)).lower(jcom_states,
+                                                 batched(refs_s)))
+    with ThreadPoolExecutor(3) as pool:
+        start, step, com_fn = pool.map(lambda lw: lw.compile(), lowered)
+    refs, warm, waist = start(st)
+    jax.block_until_ready(warm)
+    jax.effects_barrier()
+    refs_b, warm_b = _batched(_np(refs)), _batched(_np(warm))
+    ticks, w = [], warm_b
+    for _ in range(2):
+        (tau, w, aux), stack = step(jstates, refs_b, w)
+        ticks.append(_np((tau, w, aux)))
+    com = com_fn(jcom_states, refs_b)
     return dict(com_states={k: getattr(com_states, k)
                             for k in convert.STATE_FIELDS},
                 com_rows=_np(com),state=_np(st), warm=_np(warm),

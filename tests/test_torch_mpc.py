@@ -6,11 +6,12 @@ iters 20, rollouts at qp_iters 12 with 8 warm KKT iterations).
   pushes and per-sample mass and friction scales, against ``jax.vmap`` of
   the reference's rollout: cost, prim_res_max and solver_failed;
 - ``SamplingMPC.update`` from fixed samples against the reference's plan
-  step fed the same samples (its draws replaced by the numpy ones);
-- the parts not ported yet raise NotImplementedError.
+  step fed the same samples (its draws replaced by the numpy ones).
 
 Both sides start from the reference's on_start, so the rollouts are held
-alone. The reference runs its "xla" level solver (the Pallas kernel in
+alone. The reference's three programs (on_start, the vmapped rollout and
+the plan step) compile once, side by side on three threads, in the module
+fixture. The reference runs its "xla" level solver (the Pallas kernel in
 interpret mode would take minutes to compile here; tests/test_pallas_qp.py
 pins the two together); the port runs "kernel", which on CPU tensors is
 the level kernel's plain version.
@@ -22,6 +23,8 @@ bar of tests/test_pallas_qp.py (1e-5 + 2e-2 relative), since a residual
 near roundoff moves by percents. A wrong contact, push or cost term moves
 the cost by far more (a 30 N push changes it by O(1) of itself).
 """
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -57,16 +60,63 @@ def _close(actual, desired, rtol=1e-3, floor=1e-3):
                                rtol=rtol, atol=floor * scale)
 
 
+MPPI_KW = dict(n_samples=3, horizon=H, push_std=30.0)
+
+
+def _rollout_inputs():
+    rng = np.random.default_rng(0)
+    controls = (0.15 * rng.normal(size=(K, H, 3))).astype(np.float32)
+    scen = {"push": (30.0 * rng.normal(size=(K, H, 3))).astype(np.float32),
+            "mass_scale": np.array([1.0, 1.08], np.float32),
+            "mu_scale": np.array([1.0, 0.7], np.float32)}
+    return controls, scen
+
+
+def _mppi_inputs():
+    rng = np.random.default_rng(1)
+    unit = [rng.normal(size=(3, H, 3)).astype(np.float32) for _ in range(2)]
+    U_nom = (0.05 * rng.normal(size=(H, 3))).astype(np.float32)
+    return unit, U_nom
+
+
 @pytest.fixture(scope="module")
 def sides():
+    """The reference's on_start, rollout and plan step, compiled on three
+    threads; the rollout and the plan step take the references and warm
+    state as arguments. The plan step is traced with jax.random.normal
+    answering the fixed draws (the plan noise, then the pushes)."""
     jm = jzoo.humanoid()
     jplugin = JForceAcc(jm, contact_links=CONTACTS, waist_link="pelvis",
                         iters=20)
     st = jax.jit(lambda: jrollout.standing_state(jm, CONTACTS))()
+    jroll = jrollout.make_rollout_fn(
+        jplugin, jrollout.RolloutConfig(**_cfg("xla")),
+        jrollout.default_cost, contact_offsets=PATCH)
+    roll_fn = jax.jit(jax.vmap(lambda U, sc, r, w: jroll(st, r, w, U, sc),
+                               in_axes=(0, 0, None, None)))
+    jmpc = jsampling.SamplingMPC(jplugin, jsampling.MPPIConfig(**MPPI_KW),
+                                 jrollout.RolloutConfig(**_cfg("xla")))
+    controls, scen = _rollout_inputs()
+    unit, U_nom = _mppi_inputs()
+    draws = iter(unit)   # the reference draws the plan noise, then pushes
     with pytest.MonkeyPatch.context() as mp:
         # validate() reads the stack on the host, which jit cannot
         mp.setattr(JAutoStack, "validate", staticmethod(lambda *a, **k: None))
-        refs, warm, _ = jax.jit(jplugin.on_start)(st)
+        mp.setattr(jax.random, "normal", lambda key, shape, dtype=None:
+                   jnp.asarray(next(draws)))
+        refs_s, warm_s, _ = jax.eval_shape(jplugin.on_start, st)
+        with ThreadPoolExecutor(3) as pool:
+            start = pool.submit(lambda: jax.jit(jplugin.on_start).lower(
+                st).compile())
+            roll = pool.submit(lambda: roll_fn.lower(
+                controls, scen, refs_s, warm_s).compile())
+            step = pool.submit(lambda: jax.jit(jmpc._step_impl).lower(
+                jax.random.PRNGKey(0), st, refs_s, warm_s,
+                jnp.asarray(U_nom)).compile())
+            start, roll, step = (f.result() for f in (start, roll, step))
+    refs, warm, _ = start(st)
+    rollout_ref = roll(controls, scen, refs, warm)
+    mppi_ref = step(jax.random.PRNGKey(0), st, refs, warm, jnp.asarray(U_nom))
     tplugin = ForceAccPlugin(zoo.humanoid(device="cpu"),
                              contact_links=CONTACTS, waist_link="pelvis",
                              iters=20)
@@ -77,23 +127,13 @@ def sides():
     twarm = convert.qp_states([{f: np.asarray(getattr(lv, f))[None]
                                 for f in convert.QPSTATE_FIELDS}
                                for lv in warm], device="cpu")
-    return dict(jplugin=jplugin, st=st, refs=refs, warm=warm,
-                tplugin=tplugin, tst=tst, trefs=trefs, twarm=twarm)
+    return dict(tplugin=tplugin, tst=tst, trefs=trefs, twarm=twarm,
+                rollout_ref=rollout_ref, mppi_ref=mppi_ref)
 
 
 def test_rollout_matches_reference(sides):
-    rng = np.random.default_rng(0)
-    controls = (0.15 * rng.normal(size=(K, H, 3))).astype(np.float32)
-    scen = {"push": (30.0 * rng.normal(size=(K, H, 3))).astype(np.float32),
-            "mass_scale": np.array([1.0, 1.08], np.float32),
-            "mu_scale": np.array([1.0, 0.7], np.float32)}
-    jroll = jrollout.make_rollout_fn(
-        sides["jplugin"], jrollout.RolloutConfig(**_cfg("xla")),
-        jrollout.default_cost, contact_offsets=PATCH)
-    st, refs, warm = sides["st"], sides["refs"], sides["warm"]
-    cost_ref, health_ref = jax.jit(jax.vmap(
-        lambda U, sc: jroll(st, refs, warm, U, sc)))(
-        jnp.asarray(controls), {k: jnp.asarray(v) for k, v in scen.items()})
+    controls, scen = _rollout_inputs()
+    cost_ref, health_ref = sides["rollout_ref"]
 
     troll = rollout.make_rollout_fn(
         sides["tplugin"], rollout.RolloutConfig(**_cfg("pallas")),
@@ -113,25 +153,10 @@ def test_rollout_matches_reference(sides):
                                   np.asarray(health_ref["solver_failed"]))
 
 
-def test_mppi_update_matches_reference_on_fixed_samples(sides, monkeypatch):
-    mppi_kw = dict(n_samples=3, horizon=H, push_std=30.0)
-    rng = np.random.default_rng(1)
-    unit = [rng.normal(size=(3, H, 3)).astype(np.float32) for _ in range(2)]
-    U_nom = (0.05 * rng.normal(size=(H, 3))).astype(np.float32)
-
-    draws = iter(unit)   # the reference draws the plan noise, then pushes
-    monkeypatch.setattr(jax.random, "normal",
-                        lambda key, shape, dtype=None: jnp.asarray(
-                            next(draws)))
-    jmpc = jsampling.SamplingMPC(sides["jplugin"],
-                                 jsampling.MPPIConfig(**mppi_kw),
-                                 jrollout.RolloutConfig(**_cfg("xla")))
-    U_ref, info_ref = jax.jit(jmpc._step_impl)(
-        jax.random.PRNGKey(0), sides["st"], sides["refs"], sides["warm"],
-        jnp.asarray(U_nom))
-    monkeypatch.undo()
-
-    m = sampling.MPPIConfig(**mppi_kw)
+def test_mppi_update_matches_reference_on_fixed_samples(sides):
+    unit, U_nom = _mppi_inputs()
+    U_ref, info_ref = sides["mppi_ref"]
+    m = sampling.MPPIConfig(**MPPI_KW)
     tmpc = sampling.SamplingMPC(sides["tplugin"], m,
                                 rollout.RolloutConfig(**_cfg("kernel")))
     U = torch.tensor(U_nom)[None] + m.noise_std * torch.tensor(unit[0])
@@ -145,22 +170,3 @@ def test_mppi_update_matches_reference_on_fixed_samples(sides, monkeypatch):
         info_ref["solver_fail_frac"]) == 0.0
     _close(info["prim_res_max"], info_ref["prim_res_max"], rtol=2e-2,
            floor=1e-5)
-
-
-def test_unported_options_raise(sides):
-    plugin = sides["tplugin"]
-    cfg = rollout.RolloutConfig(**_cfg("kernel"))
-    for kw in (dict(swing=lambda *a: None),
-               dict(terminal_cost=lambda *a: None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rollout.make_rollout_fn(plugin, cfg, rollout.default_cost, **kw)
-    roll = rollout.make_rollout_fn(plugin, cfg, rollout.default_cost)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        roll(sides["tst"], sides["trefs"], sides["twarm"],
-             torch.zeros(1, H, 3), {"push": torch.zeros(1, H, 3),
-                                    "gate_seq": torch.ones(1, H, 2)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sampling.SamplingMPC(plugin, sampling.MPPIConfig(step_recovery=True))
-    with pytest.raises(ValueError, match="qp_backend"):
-        rollout.make_rollout_fn(plugin, rollout.RolloutConfig(
-            qp_backend="cuda"), rollout.default_cost)

@@ -27,6 +27,7 @@ their scale, as tests/test_torch_force_acc.py's ticks; a wrong contact
 point, sign or frame moves any of these by O(1) of its scale.
 """
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import jax
@@ -372,26 +373,33 @@ def test_closed_loop_first_ticks_match_reference(models):
     robot = jri.SimRobot(jm, state=jri.standing_state(jm, CONTACTS),
                          dt=1e-3, substeps=substeps, contact_links=CONTACTS,
                          contact_offsets=PATCH)
-    with pytest.MonkeyPatch.context() as mp:
-        # validate() reads the stack on the host, which jit cannot
-        mp.setattr(JAutoStack, "validate", staticmethod(lambda *a, **k: None))
-        refs, warm, _ = jax.jit(plugin.on_start)(robot.state)
     sim = partial(jri._sim_step, jm, 1e-3 / substeps, robot._contact_idx,
                   robot._contact_offsets, 0.0, robot.contact_kp,
                   robot.contact_kd, robot.mu, robot.contact_kt)
     zero = jnp.zeros(jm.nj, jnp.float32)
 
-    @jax.jit
-    def tick(st, anchors, w):
-        tau, w, aux = plugin._step_impl(st, refs, w)
+    def tick(st, anchors, r, w):
+        tau, w, aux = plugin._step_impl(st, r, w)
         for _ in range(substeps):
             st, anchors = sim(st, anchors, tau, st.q, zero, zero)
         return st, anchors, w, tau, aux.solver_failed
 
+    # on_start and the tick compile side by side, on two threads
+    with pytest.MonkeyPatch.context() as mp:
+        # validate() reads the stack on the host, which jit cannot
+        mp.setattr(JAutoStack, "validate", staticmethod(lambda *a, **k: None))
+        refs_s, warm_s, _ = jax.eval_shape(plugin.on_start, robot.state)
+        with ThreadPoolExecutor(2) as pool:
+            start = pool.submit(lambda: jax.jit(plugin.on_start).lower(
+                robot.state).compile())
+            step = pool.submit(lambda: jax.jit(tick).lower(
+                robot.state, robot._anchors, refs_s, warm_s).compile())
+            start, step = start.result(), step.result()
+    refs, warm, _ = start(robot.state)
     st, anchors, w = robot.state, robot._anchors, warm
     taus_ref = []
     for _ in range(ticks):
-        st, anchors, w, tau, failed = tick(st, anchors, w)
+        st, anchors, w, tau, failed = step(st, anchors, refs, w)
         assert not bool(failed)
         taus_ref.append(np.asarray(tau))
 
