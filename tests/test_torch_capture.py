@@ -61,8 +61,10 @@ QUAD = dict(contact_links=FEET, waist_link="pelvis", iters=40,
             foot_tasks_6d=False)
 K, H = 2, 3
 # test_step_recovery_decision_channel's rollout (dt 0.04, mu 1.3) at H 3,
-# 20 QP iterations and 2 substeps
+# 20 QP iterations and 2 substeps; the MPPI step's rollouts in 1 substep
+# (each substep adds about 3 s to a program's tracing here)
 RCFG = dict(horizon=H, qp_iters=20, dt=0.04, sim_substeps=2, mu=1.3)
+MCFG = dict(RCFG, sim_substeps=1)
 MPPI = dict(n_samples=3, horizon=H, noise_std=0.2, push_std=20.0,
             step_recovery=True, theta_noise_std=1.5, dxy_noise_std=0.1)
 # two different decisions in one batch: foot_fr steps early, foot_fl
@@ -150,6 +152,7 @@ def quad():
     thetas = {k: np.asarray(v, np.float32) for k, v in THETAS.items()}
 
     M = MPPI["n_samples"]
+    rng = np.random.default_rng(1)
     unit = {"U": rng.normal(size=(M, H, 3)), "push": rng.normal(size=(M, H, 3)),
             "swing": rng.normal(size=(M, 4)), "t0": rng.normal(size=(M,)),
             "dxy": rng.normal(size=(M, 2))}
@@ -164,7 +167,9 @@ def quad():
     def normal(key, shape, dtype=None):
         return jnp.asarray(by_shape[tuple(shape)].pop(0))
 
-    jmpc = jsampling.SamplingMPC(jp, jsampling.MPPIConfig(**MPPI), jcfg)
+    jmpc = jsampling.SamplingMPC(jp, jsampling.MPPIConfig(**MPPI),
+                                 jrollout.RolloutConfig(**MCFG,
+                                                        qp_backend="xla"))
     mpc_args = (jax.random.PRNGKey(0), jst, jrefs, jwarm, jnp.asarray(U_nom),
                 _f32(theta_nom))
     with pytest.MonkeyPatch.context() as mp:
@@ -417,7 +422,7 @@ def test_mppi_step_recovery_update_matches_reference(quad):
     step was fed (its normal draws replaced by the same numpy ones)."""
     m = sampling.MPPIConfig(**MPPI)
     tmpc = sampling.SamplingMPC(quad["tp"], m, rollout.RolloutConfig(
-        **RCFG, qp_backend="kernel"))
+        **MCFG, qp_backend="kernel"))
     unit, t = quad["unit"], lambda a: torch.tensor(a)  # noqa: E731
     U = t(quad["U_nom"])[None] + m.noise_std * t(unit["U"])
     theta = {k: t(v)[None] + (m.dxy_noise_std if k == "dxy"
@@ -434,6 +439,7 @@ def test_mppi_step_recovery_update_matches_reference(quad):
     for k in ("cost_min", "cost_mean", "ess"):
         _close(info[k].numpy(), info_ref[k])
     _close(info["U_best"].numpy(), info_ref["U_best"], floor=1e-4)
+    assert int(torch.argmin(info["costs"])) != 0   # theta_best is indexed
     assert float(info["solver_fail_frac"]) == float(
         info_ref["solver_fail_frac"])
     _close(info["prim_res_max"].numpy(), info_ref["prim_res_max"],

@@ -16,7 +16,9 @@ qppvm_tpu, on the humanoid.
   on_start, so the loop is held alone.
 
 Inputs are numpy-seeded and fed to both sides in float32; JAX programs are
-jitted and vmapped over the batch (one compilation each).
+jitted and vmapped over the batch, one program for the four variants of
+forward dynamics, one for ground contact, and the closed loop's on_start
+and tick compiled side by side on two threads.
 
 Tolerances: float32 on both sides with sums in another order. Kinematic
 quantities and forces to rtol 1e-4 with a floor of 1e-4 of their scale, as
@@ -113,12 +115,14 @@ def test_so3_exp_matches_reference():
     _close(spatial.so3_exp(torch.tensor(w)), ref, rtol=1e-5, floor=1e-6)
 
 
-@pytest.mark.parametrize("method,given", [("ns", False), ("ns", True),
-                                          ("chol", False), ("chol", True)])
-def test_forward_dynamics_and_integrate_match_reference(models, method,
-                                                        given):
-    """``given``: the mass matrix and (for "ns") an NS inverse of it are
-    passed in, as the rollout does."""
+FD_CASES = [("ns", False), ("ns", True), ("chol", False), ("chol", True)]
+
+
+@pytest.fixture(scope="module")
+def fd_case(models):
+    """forward_dynamics and integrate in each FD_CASES variant, from one
+    jitted vmapped JAX program. ``given``: the mass matrix and (for "ns")
+    an NS inverse of it are passed in, as the rollout does."""
     jm, tm = models
     arrs = _near_ground_states(jm, seed=1)
     rng = np.random.default_rng(2)
@@ -128,28 +132,42 @@ def test_forward_dynamics_and_integrate_match_reference(models, method,
         ext[:, tm.link_index(c)] = 50.0 * rng.normal(size=(B, 6))
 
     def ref_fn(st, ta, ex):
-        kw = {}
-        if given:
-            Bm = jdyn.mass_matrix(jm, st)
-            kw = dict(B=Bm, binv=jlinalg.spd_inverse_ns(
-                Bm + 1e-9 * jnp.eye(jm.nv, dtype=jnp.float32), iters=22,
-                refine=2)
-                if method == "ns" else None)
-        udot = jdyn.forward_dynamics(jm, st, ta, ext_wrenches=ex,
-                                     method=method, **kw)
-        return udot, jdyn.integrate(jm, st, udot, 1e-3)
+        out = []
+        for method, given in FD_CASES:
+            kw = {}
+            if given:
+                Bm = jdyn.mass_matrix(jm, st)
+                kw = dict(B=Bm, binv=jlinalg.spd_inverse_ns(
+                    Bm + 1e-9 * jnp.eye(jm.nv, dtype=jnp.float32), iters=22,
+                    refine=2)
+                    if method == "ns" else None)
+            udot = jdyn.forward_dynamics(jm, st, ta, ext_wrenches=ex,
+                                         method=method, **kw)
+            out.append((udot, jdyn.integrate(jm, st, udot, 1e-3)))
+        return out
 
-    udot_ref, st_ref = jax.jit(jax.vmap(ref_fn))(
-        _jstate(arrs), jnp.asarray(tau), jnp.asarray(ext))
-    ts = _tstate(arrs)
+    ref = jax.jit(jax.vmap(ref_fn))(_jstate(arrs), jnp.asarray(tau),
+                                   jnp.asarray(ext))
+    return dict(arrs=arrs, tau=tau, ext=ext,
+                ref=dict(zip(FD_CASES, jax.tree.map(np.asarray, ref))))
+
+
+@pytest.mark.parametrize("method,given", FD_CASES)
+def test_forward_dynamics_and_integrate_match_reference(models, fd_case,
+                                                        method, given):
+    """``given``: the mass matrix and (for "ns") an NS inverse of it are
+    passed in, as the rollout does."""
+    jm, tm = models
+    udot_ref, st_ref = fd_case["ref"][method, given]
+    ts = _tstate(fd_case["arrs"])
     kw = {}
     if given:
         Bm = dynamics.mass_matrix(tm, ts)
         kw = dict(B=Bm, binv=linalg.spd_inverse_ns(
             Bm + 1e-9 * torch.eye(tm.nv), iters=22, refine=2)
             if method == "ns" else None)
-    udot = dynamics.forward_dynamics(tm, ts, torch.tensor(tau),
-                                     ext_wrenches=torch.tensor(ext),
+    udot = dynamics.forward_dynamics(tm, ts, torch.tensor(fd_case["tau"]),
+                                     ext_wrenches=torch.tensor(fd_case["ext"]),
                                      method=method, **kw)
     _close(udot, udot_ref, rtol=1e-3, floor=1e-3)
     # integrate from the reference's udot: the step alone
