@@ -327,6 +327,7 @@ def test_swing_primitive_matches_reference(quad, span_s):
     apply, init_theta = rollout.make_swing_primitive(quad["tp"],
                                                      span_s=span_s)
     japply, jinit = jrollout.make_swing_primitive(quad["jp"], span_s=span_s)
+    japply_jit = jax.jit(japply)
     for k, v in init_theta().items():
         _tight(v.numpy(), np.asarray(jinit()[k]))
     refs = _varied_refs(quad["refs"], 3, seed=4)
@@ -341,7 +342,7 @@ def test_swing_primitive_matches_reference(quad, span_s):
                               0.93, 1.0]):
         got = apply(trefs, ttheta, torch.tensor(t_frac))
         for i in range(3):
-            ref = japply(_f32(jax.tree.map(lambda a: a[i], refs)),
+            ref = japply_jit(_f32(jax.tree.map(lambda a: a[i], refs)),
                          _f32(jax.tree.map(lambda a: a[i], theta)),
                          jnp.float32(t_frac))
             _compare_tree(got, _np(ref), i)

@@ -8,10 +8,12 @@ iters 20, rollouts at qp_iters 12 with 8 warm KKT iterations).
 - ``SamplingMPC.update`` from fixed samples against the reference's plan
   step fed the same samples (its draws replaced by the numpy ones).
 
-Both sides start from the reference's on_start, so the rollouts are held
-alone. The reference's three programs (on_start, the vmapped rollout and
-the plan step) compile once, side by side on three threads, in the module
-fixture. The reference runs its "xla" level solver (the Pallas kernel in
+Both sides start from the port's on_start (its references and warm state
+carried across), so the rollouts are held alone and no JAX on_start is
+compiled; tests/test_torch_force_acc.py holds on_start itself. The
+reference's two programs (the vmapped rollout and the plan step) compile
+once, side by side on two threads, in the module fixture. The reference
+runs its "xla" level solver (the Pallas kernel in
 interpret mode would take minutes to compile here; tests/test_pallas_qp.py
 pins the two together); the port runs "kernel", which on CPU tensors is
 the level kernel's plain version.
@@ -34,8 +36,9 @@ import jax.numpy as jnp
 from qppvm_tpu.model import zoo as jzoo
 from qppvm_tpu.mpc import rollout as jrollout
 from qppvm_tpu.mpc import sampling as jsampling
+from qppvm_tpu.model.robot import RobotState as JRobotState
+from qppvm_tpu.opt.qp import QPState as JQPState
 from qppvm_tpu.plugins.force_acc import ForceAccPlugin as JForceAcc
-from qppvm_tpu.stack.autostack import AutoStack as JAutoStack
 from qppvm_tpu_torch.model import convert, zoo
 from qppvm_tpu_torch.mpc import rollout, sampling
 from qppvm_tpu_torch.opt import hierarchy
@@ -81,54 +84,46 @@ def _mppi_inputs():
 
 @pytest.fixture(scope="module")
 def sides():
-    """The reference's on_start, rollout and plan step, compiled on three
-    threads; the rollout and the plan step take the references and warm
-    state as arguments. The plan step is traced with jax.random.normal
-    answering the fixed draws (the plan noise, then the pushes)."""
-    jm = jzoo.humanoid()
-    jplugin = JForceAcc(jm, contact_links=CONTACTS, waist_link="pelvis",
-                        iters=20)
-    st = jax.jit(lambda: jrollout.standing_state(jm, CONTACTS))()
+    """The port's on_start on the humanoid, carried across to the
+    reference; the reference's rollout and plan step, compiled on two
+    threads. The plan step is traced with jax.random.normal answering the
+    fixed draws (the plan noise, then the pushes)."""
+    tplugin = ForceAccPlugin(zoo.humanoid(device="cpu"),
+                             contact_links=CONTACTS, waist_link="pelvis",
+                             iters=20)
+    tst = rollout.standing_state(tplugin.model, CONTACTS)
+    trefs, twarm, _ = tplugin.on_start(tst)
+    item0 = lambda t: ({k: item0(v) for k, v in t.items()}  # noqa: E731
+                       if isinstance(t, dict) else jnp.asarray(t[0].numpy()))
+    st = JRobotState(**{k: item0(getattr(tst, k))
+                        for k in convert.STATE_FIELDS})
+    refs = item0(trefs)
+    warm = tuple(JQPState(**{f: item0(getattr(lv, f))
+                             for f in convert.QPSTATE_FIELDS})
+                 for lv in twarm)
+    jplugin = JForceAcc(jzoo.humanoid(), contact_links=CONTACTS,
+                        waist_link="pelvis", iters=20)
     jroll = jrollout.make_rollout_fn(
         jplugin, jrollout.RolloutConfig(**_cfg("xla")),
         jrollout.default_cost, contact_offsets=PATCH)
-    roll_fn = jax.jit(jax.vmap(lambda U, sc, r, w: jroll(st, r, w, U, sc),
-                               in_axes=(0, 0, None, None)))
+    roll_fn = jax.jit(jax.vmap(lambda U, sc: jroll(st, refs, warm, U, sc)))
     jmpc = jsampling.SamplingMPC(jplugin, jsampling.MPPIConfig(**MPPI_KW),
                                  jrollout.RolloutConfig(**_cfg("xla")))
     controls, scen = _rollout_inputs()
     unit, U_nom = _mppi_inputs()
+    step_args = (jax.random.PRNGKey(0), st, refs, warm, jnp.asarray(U_nom))
     draws = iter(unit)   # the reference draws the plan noise, then pushes
     with pytest.MonkeyPatch.context() as mp:
-        # validate() reads the stack on the host, which jit cannot
-        mp.setattr(JAutoStack, "validate", staticmethod(lambda *a, **k: None))
         mp.setattr(jax.random, "normal", lambda key, shape, dtype=None:
                    jnp.asarray(next(draws)))
-        refs_s, warm_s, _ = jax.eval_shape(jplugin.on_start, st)
-        with ThreadPoolExecutor(3) as pool:
-            start = pool.submit(lambda: jax.jit(jplugin.on_start).lower(
-                st).compile())
-            roll = pool.submit(lambda: roll_fn.lower(
-                controls, scen, refs_s, warm_s).compile())
+        with ThreadPoolExecutor(2) as pool:
+            roll = pool.submit(lambda: roll_fn.lower(controls,
+                                                     scen).compile())
             step = pool.submit(lambda: jax.jit(jmpc._step_impl).lower(
-                jax.random.PRNGKey(0), st, refs_s, warm_s,
-                jnp.asarray(U_nom)).compile())
-            start, roll, step = (f.result() for f in (start, roll, step))
-    refs, warm, _ = start(st)
-    rollout_ref = roll(controls, scen, refs, warm)
-    mppi_ref = step(jax.random.PRNGKey(0), st, refs, warm, jnp.asarray(U_nom))
-    tplugin = ForceAccPlugin(zoo.humanoid(device="cpu"),
-                             contact_links=CONTACTS, waist_link="pelvis",
-                             iters=20)
-    one = lambda t: jax.tree.map(lambda a: np.asarray(a)[None], t)  # noqa
-    tst = convert.robot_state(one({k: getattr(st, k) for k in
-                                   convert.STATE_FIELDS}), device="cpu")
-    trefs = convert.refs(one(refs), device="cpu")
-    twarm = convert.qp_states([{f: np.asarray(getattr(lv, f))[None]
-                                for f in convert.QPSTATE_FIELDS}
-                               for lv in warm], device="cpu")
+                *step_args).compile())
+            roll, step = roll.result(), step.result()
     return dict(tplugin=tplugin, tst=tst, trefs=trefs, twarm=twarm,
-                rollout_ref=rollout_ref, mppi_ref=mppi_ref)
+                rollout_ref=roll(controls, scen), mppi_ref=step(*step_args))
 
 
 def test_rollout_matches_reference(sides):

@@ -12,13 +12,12 @@ qppvm_tpu, on the humanoid.
   the card), which on CPU tensors is ``linalg.spd_inverse_ns(Breg, 22, 2)``
   to the bit;
 - the first 3 ticks of the closed loop (``runtime/rt_loop.py``) against the
-  same loop in JAX (bench_rt_loop.py's tick), both from the reference's
-  on_start, so the loop is held alone.
+  same loop in JAX (bench_rt_loop.py's tick), both from the port's
+  on_start (carried across), so the loop is held alone.
 
 Inputs are numpy-seeded and fed to both sides in float32; JAX programs are
 jitted and vmapped over the batch, one program for the four variants of
-forward dynamics, one for ground contact, and the closed loop's on_start
-and tick compiled side by side on two threads.
+forward dynamics, one for ground contact, one for the closed loop's tick.
 
 Tolerances: float32 on both sides with sums in another order. Kinematic
 quantities and forces to rtol 1e-4 with a floor of 1e-4 of their scale, as
@@ -29,7 +28,6 @@ their scale, as tests/test_torch_force_acc.py's ticks; a wrong contact
 point, sign or frame moves any of these by O(1) of its scale.
 """
 import dataclasses
-from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import jax
@@ -44,9 +42,9 @@ from qppvm_tpu.model import robot as jrobot
 from qppvm_tpu.model import spatial as jspatial
 from qppvm_tpu.model import zoo as jzoo
 from qppvm_tpu.opt import linalg as jlinalg
+from qppvm_tpu.opt import qp as jqp
 from qppvm_tpu.plugins.force_acc import ForceAccPlugin as JForceAcc
 from qppvm_tpu.runtime import robot_interface as jri
-from qppvm_tpu.stack.autostack import AutoStack as JAutoStack
 from qppvm_tpu_torch.model import convert, dynamics, spatial, zoo
 from qppvm_tpu_torch.mpc import rollout
 from qppvm_tpu_torch.opt import linalg, ns_inverse
@@ -383,9 +381,23 @@ def test_sim_robot_sense_and_move_match_reference(models):
 def test_closed_loop_first_ticks_match_reference(models):
     """bench_rt_loop.py's tick (ForceAcc RT profile, unbatched XLA solves)
     against ClosedLoop.run with the plain level solver, both from the
-    reference's on_start, 3 ticks of 2 substeps with the state fed back."""
+    port's on_start (tests/test_torch_force_acc.py holds on_start itself),
+    3 ticks of 2 substeps with the state fed back."""
     jm, tm = models
     ticks, substeps = 3, 2
+    tplugin = ForceAccPlugin(tm, contact_links=CONTACTS, waist_link="pelvis",
+                             iters=12, solver_opts=dict(rt_loop.RT_PROFILE,
+                                                        backend="torch"))
+    trobot = ri.SimRobot(tm, state=ri.standing_state(tm, CONTACTS), dt=1e-3,
+                         substeps=substeps, contact_links=CONTACTS,
+                         contact_offsets=PATCH)
+    trefs, twarm, _ = tplugin.on_start(trobot.state)
+    item0 = lambda t: ({k: item0(v) for k, v in t.items()}  # noqa: E731
+                       if isinstance(t, dict) else jnp.asarray(t[0].numpy()))
+    refs = item0(trefs)
+    warm = tuple(jqp.QPState(**{f: item0(getattr(lv, f))
+                                for f in convert.QPSTATE_FIELDS})
+                 for lv in twarm)
     plugin = JForceAcc(jm, contact_links=CONTACTS, waist_link="pelvis",
                        iters=12, solver_opts=rt_loop.RT_PROFILE)
     robot = jri.SimRobot(jm, state=jri.standing_state(jm, CONTACTS),
@@ -396,43 +408,21 @@ def test_closed_loop_first_ticks_match_reference(models):
                   robot.contact_kd, robot.mu, robot.contact_kt)
     zero = jnp.zeros(jm.nj, jnp.float32)
 
-    def tick(st, anchors, r, w):
-        tau, w, aux = plugin._step_impl(st, r, w)
+    @jax.jit
+    def tick(st, anchors, w):
+        tau, w, aux = plugin._step_impl(st, refs, w)
         for _ in range(substeps):
             st, anchors = sim(st, anchors, tau, st.q, zero, zero)
         return st, anchors, w, tau, aux.solver_failed
 
-    # on_start and the tick compile side by side, on two threads
-    with pytest.MonkeyPatch.context() as mp:
-        # validate() reads the stack on the host, which jit cannot
-        mp.setattr(JAutoStack, "validate", staticmethod(lambda *a, **k: None))
-        refs_s, warm_s, _ = jax.eval_shape(plugin.on_start, robot.state)
-        with ThreadPoolExecutor(2) as pool:
-            start = pool.submit(lambda: jax.jit(plugin.on_start).lower(
-                robot.state).compile())
-            step = pool.submit(lambda: jax.jit(tick).lower(
-                robot.state, robot._anchors, refs_s, warm_s).compile())
-            start, step = start.result(), step.result()
-    refs, warm, _ = start(robot.state)
     st, anchors, w = robot.state, robot._anchors, warm
     taus_ref = []
     for _ in range(ticks):
-        st, anchors, w, tau, failed = step(st, anchors, refs, w)
+        st, anchors, w, tau, failed = tick(st, anchors, w)
         assert not bool(failed)
         taus_ref.append(np.asarray(tau))
 
-    tplugin = ForceAccPlugin(tm, contact_links=CONTACTS, waist_link="pelvis",
-                             iters=12, solver_opts=dict(rt_loop.RT_PROFILE,
-                                                        backend="torch"))
-    trobot = ri.SimRobot(tm, state=ri.standing_state(tm, CONTACTS), dt=1e-3,
-                         substeps=substeps, contact_links=CONTACTS,
-                         contact_offsets=PATCH)
-    batch1 = lambda t: jax.tree.map(lambda a: np.asarray(a)[None], t)  # noqa
-    loop = rt_loop.ClosedLoop(
-        tplugin, trobot, convert.refs(batch1(refs), device="cpu"),
-        convert.qp_states([{f: np.asarray(getattr(lv, f))[None]
-                            for f in convert.QPSTATE_FIELDS} for lv in warm],
-                          device="cpu"))
+    loop = rt_loop.ClosedLoop(tplugin, trobot, trefs, twarm)
     res = loop.run(ticks, record=ticks)
     assert int(res.n_fail) == 0
     for tau, tau_ref in zip(res.taus, taus_ref):
