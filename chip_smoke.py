@@ -18,8 +18,11 @@ Phases, each fatal on failure:
    at B = 1 the time of a call with the wrapper's host work is printed too.
    Then the ForceAccExample robots' level shapes (ROBOT_SHAPES: the
    quadruped's n 34, the centaur's n 49 with friction cones, an n 49 level
-   with 74 inequality rows, and phase 9's capture stack at n 50) at
-   B = 1024 and B = 1, cold then warm, each timed beside its bound. The kernels line's max_abs_err
+   with 74 inequality rows, and phase 9's capture stack at n 50) and the
+   QPPVM stacks' (phase 11: the dual arm's n 15 and the arm's n 7, the
+   torque box alone and with 6 locked rows, in QPPVMPlugin's profile with
+   rho_updates 0) at B = 1024 and B = 1, cold then warm, each timed
+   beside its bound. The kernels line's max_abs_err
    is the largest gap over ERR_OUTPUTS; each phase's line prints them all;
 3. drive the main path: ForceAccPlugin on the humanoid with bench.py's RT
    profile, on_start, then 5 chained batched ticks at B = 1024 (q perturbed
@@ -30,7 +33,9 @@ Phases, each fatal on failure:
 4. drive the NS-inverse path (ns_inverse, bench_pallas.py's B 1024, n 64,
    26 iterations on K = M M^T + 0.5 I) and the simulator's shape (the
    humanoid's regularized mass matrix, 24 iterations, B 1 and 1024; the
-   quadruped's, n 22, B 1); hold
+   quadruped's, n 22, B 1) and the QPPVM loops' (the dual arm's mass
+   matrix, n 15, B 1, 20 iterations for the tick's Binv and 24 for the
+   plant; the arm's, n 7, 20 iterations); hold
    the kernel to its plain version (atol 2e-4, rtol 2e-3) and to
    max |K X - I| < 5e-3; time the kernel (on the device, and a call with
    the wrapper's host time), the plain version and torch.linalg.inv, and
@@ -92,7 +97,23 @@ Phases, each fatal on failure:
    solver_fail_frac 0 and finite costs; 3 draws through the kernel and the
    plain level solver on the same samples, held as phase 6 (and theta_new
    within MPC_U_ATOL of 1 + |theta|); one rollout at K 512 with a gate_seq
-   ramping foot_fl off mid-horizon, healthy and finite.
+   ramping foot_fl off mid-horizon, healthy and finite;
+11. the reference's QPPVMPlugin experiment through
+   runtime/plugin.py::ControlLoop, as tests/test_qppvm_e2e.py runs it:
+   config 2, the dual arm (iters 60) on the moving sinusoid of its left
+   EE, SimRobot at dt 1 ms in 2 substeps, 1,500 ticks with a TraceBuffer:
+   at most 15 failed ticks, the left EE's error after tick 500 of mean
+   < 0.05 m and max < 0.12 m, tau_desired within +/-(tau_max + 1e-4) on
+   every solved tick, the trace flushed with 1,500 rows; 3 NS launches a
+   tick (the tick's Binv and one a plant substep, + on_start's), 0 plain
+   inverses, 0 level launches; LoopStats p50 / p99 / mean ms and deadline
+   misses against 1 ms, the plant alone and the control share. The first
+   5 torques held to the same ticks with the plain NS inverse; 5 ticks in
+   the level kernel's profile (rho_updates 0, backend "kernel") chained
+   from one on_start: 2 level launches and 0 fallbacks a tick, tau held to
+   the plain level solver's chain at phase 3's bars. Config 1, the arm
+   (iters 40) holding home for 500 ticks: no failure, |q - q_home| < 0.05,
+   |qd| < 0.5, |tau| <= tau_max + 1e-4; ms a tick.
 
 Prints the card's name and power limit, a JSON line describing the kernels,
 then, as the last line, {"ok": true, "device": {...}}. Exits non-zero
@@ -132,8 +153,19 @@ ERR_OUTPUTS = ("x", "z", "y", "Kinv", "carried_rho_scale")
 ROBOT_SHAPES = {(34, 18, 6, 0): "quadruped", (34, 24, 6, 6): "quadruped",
                 (49, 26, 6, 0): "centaur", (49, 32, 6, 6): "centaur",
                 (49, 80, 6, 6): "n 49, 74 inequality rows",
-                (50, 22, 6, 0): "capture", (50, 28, 6, 6): "capture"}
-ROBOTS = ("quadruped", "centaur", "capture")
+                (50, 22, 6, 0): "capture", (50, 28, 6, 6): "capture",
+                (15, 15, 0, 0): "dual_arm", (15, 21, 0, 6): "dual_arm",
+                (7, 7, 0, 0): "arm7", (7, 13, 0, 6): "arm7"}
+ROBOTS = ("quadruped", "centaur", "capture", "dual_arm", "arm7")
+# the QPPVM stack's levels (phase 11): level 0 the torque box alone (n
+# rows), level 1 the box and level 0's 3 + 3 EE rows locked as tail
+# equalities; solved in QPPVMPlugin's profile with rho_updates 0, the
+# level kernel's (iters 60, 12 warm NS iterations, 5 Ruiz passes, 7
+# pseudo-inverse steps), on problems whose tail rows are feasible locks
+# (level_qp_parity.random_problems(locks=True))
+QPPVM_ROBOTS = ("dual_arm", "arm7")
+QPPVM_LEVEL = dict(iters=60, warm_kinv_iters=12, scale_iters=5,
+                   pinv_ns_iters=7)
 FEET = ("foot_fl", "foot_fr", "foot_hr", "foot_hl")
 BACKENDS = ("kernel", "torch")   # level solver: CUDA kernel, plain qp.solve
 # tau of the kernel chain vs the plain chain: float32 sums in another order
@@ -172,7 +204,7 @@ MPC_DRAWS = 3
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES_S = 67e12, 495e12, 3.35e12
 # bars on the NS kernel's time (ms) at each phase 4 shape, printed and not
 # gated: a slow kernel that is right stays
-NS_BARS_MS = (1.0, 0.107, 0.60, None)
+NS_BARS_MS = (1.0, 0.107, 0.60, None, None, None, None)
 # phase 9: tests/test_capture_step.py on the humanoid. The plugin (6D
 # wrenches in friction cones at mu 0.6, switchable contacts, iters 40; its
 # level shapes, n 50, are the "capture" ROBOT_SHAPES), the single-support
@@ -229,6 +261,18 @@ GATE_ROLLOUT = dict(horizon=8, qp_iters=20, dt=0.02, sim_substeps=2)
 # tests/test_torch_sim.py for accelerations); a wrong inverse moves udot by
 # O(1) of its scale
 UDOT_REL = 1e-3
+# phase 11: tests/test_qppvm_e2e.py's QPPVM runs through
+# runtime/plugin.py::ControlLoop. Config 2: the dual arm on the
+# reference's moving sinusoid, 1,500 ticks of dt 1 ms in 2 substeps;
+# gated after tick 500 on the left EE's error, with at most 15 failed
+# ticks; tau_desired inside +/-(tau_max + 1e-4) on every tick that did
+# not fail. Config 1: the arm holding home for 500 ticks. The plant alone
+# timed over QPPVM_SIM_TICKS ticks; the kernel-against-plain checks run
+# QPPVM_COMPARE ticks.
+QPPVM_TICKS, QPPVM_SETTLE, QPPVM_MAX_FAILS = 1500, 500, 15
+QPPVM_ERR_MEAN, QPPVM_ERR_MAX, TAU_LIMIT_TOL = 0.05, 0.12, 1e-4
+ARM7_TICKS, ARM7_Q_TOL, ARM7_QD_TOL = 500, 0.05, 0.5
+QPPVM_SIM_TICKS, QPPVM_COMPARE = 200, 5
 
 
 def fail(msg):
@@ -378,17 +422,19 @@ def compare_taus(torch, taus, taus_ref, label):
 
 
 def check_level_phase(torch, parity, level_qp, cfg, prob, state, label,
-                      phases=("cold", "warm")):
+                      phases=("cold", "warm"), excuse=False):
     """Kernel vs plain version from ``state``, each phase warm-started from
     the kernel's own output state. Returns (max abs error over
     ERR_OUTPUTS, last state); every gap, the raw rho_scale's too, is
-    printed."""
+    printed. ``excuse``: the float32-undetermined items of the QPPVM
+    shapes are held to the plain version's own float32 error
+    (``level_qp_parity.check_level_outputs``)."""
     max_err = 0.0
     for phase in phases:
         out = level_qp.solve_level(cfg, *prob, *state)
         torch.cuda.synchronize()
         try:
-            errs = parity.check_level_outputs(cfg, prob, state, out)
+            errs = parity.check_level_outputs(cfg, prob, state, out, excuse)
         except AssertionError as e:
             fail(f"{label} {phase}: {e}")
         print(f"kernel vs plain {label} {phase}: max abs "
@@ -411,19 +457,22 @@ def time_level(torch, level_qp, cfg, prob, state):
 
 def phase_robot_levels(torch, dev, card, parity, level_qp):
     """Phase 2, continued: the level kernel against its plain version at
-    ROBOT_SHAPES, B 1024 and B 1, cold then warm, in the RT profile, timed
-    with their bounds. Returns (max abs error, {(shape, B): (kernel ms,
+    ROBOT_SHAPES, B 1024 and B 1, cold then warm, in the RT profile (the
+    QPPVM shapes in QPPVM_LEVEL's), timed with their bounds. Returns (max abs error, {(shape, B): (kernel ms,
     plain ms, bound ms, bound_by)})."""
     max_err, times = 0.0, {}
     for i, ((n, m, h, t), robot) in enumerate(ROBOT_SHAPES.items()):
-        cfg = level_qp.LevelQPConfig(n_eq_head=h, n_eq_tail=t,
-                                     cold_ns_iters=10)
+        profile = (QPPVM_LEVEL if robot in QPPVM_ROBOTS
+                   else dict(cold_ns_iters=10))
+        cfg = level_qp.LevelQPConfig(n_eq_head=h, n_eq_tail=t, **profile)
+        qppvm = robot in QPPVM_ROBOTS
         for Bl in (B, 1):
-            prob = parity.random_problems(Bl, n, m, h, t, dev, seed=30 + i)
+            prob = parity.random_problems(Bl, n, m, h, t, dev, seed=30 + i,
+                                          locks=qppvm)
             label = f"n={n} m={m} h={h} t={t} B={Bl}"
             err, state = check_level_phase(
                 torch, parity, level_qp, cfg, prob,
-                parity.zero_state(Bl, n, m, dev), label)
+                parity.zero_state(Bl, n, m, dev), label, excuse=qppvm)
             max_err = max(max_err, err)
             k_ms, p_ms = time_level(torch, level_qp, cfg, prob, state)
             b_ms, b_by = bound_ms(*level_qp_cost(cfg, Bl, n, m))
@@ -437,7 +486,8 @@ def phase_robot_levels(torch, dev, card, parity, level_qp):
 
 def phase_ns_inverse(torch, dev, card):
     """Phase 4: the NS-inverse path and the kernel against its plain
-    version at the bench shape and at the simulator's shape."""
+    version at the bench shape, the simulators' shapes and the QPPVM
+    loops' (phase 11)."""
     from qppvm_tpu_torch.model import dynamics, zoo
     from qppvm_tpu_torch.mpc.rollout import standing_state
     from qppvm_tpu_torch.opt import ns_inverse as nsi
@@ -465,12 +515,23 @@ def phase_ns_inverse(torch, dev, card):
     st_q = standing_state(quad, FEET)
     Bq = dynamics.mass_matrix(quad, st_q) + 1e-9 * torch.eye(quad.nv,
                                                              device=dev)
+    # the QPPVM tick's Binv (18 + 2 iterations) and the fixed-base plant's
+    # inverse (24), at the dual arm's and the arm's home
+    arms = {name: getattr(zoo, name)(device=dev) for name in QPPVM_ROBOTS}
+    Ba = {name: dynamics.mass_matrix(m, m.home_state())
+          for name, m in arms.items()}
+    n2, n1 = arms["dual_arm"].nv, arms["arm7"].nv
     cases = {f"bench B={NS_B} n={NS_N} iters={NS_ITERS}": (K, NS_ITERS, X),
              f"sim B=1 n={model.nv} iters=24": (Breg[:1].contiguous(), 24,
                                                 None),
              f"sim B={NS_B} n={model.nv} iters=24": (Breg, 24, None),
              # the quadruped's plant in phase 8
-             f"sim B=1 n={quad.nv} iters=24": (Bq.contiguous(), 24, None)}
+             f"sim B=1 n={quad.nv} iters=24": (Bq.contiguous(), 24, None),
+             # phase 11's QPPVM loops
+             f"qppvm Binv B=1 n={n2} iters=20": (Ba["dual_arm"], 20, None),
+             f"qppvm sim B=1 n={n2} iters=24": (
+                 Ba["dual_arm"] + 1e-9 * torch.eye(n2, device=dev), 24, None),
+             f"qppvm Binv B=1 n={n1} iters=20": (Ba["arm7"], 20, None)}
     max_err, times, bounds = 0.0, {}, {}
     for (label, (Kc, iters, Xc)), bar in zip(cases.items(), NS_BARS_MS):
         Xc = nsi.ns_inverse(Kc, iters) if Xc is None else Xc
@@ -526,7 +587,14 @@ def phase_ns_inverse(torch, dev, card):
             "library_ms": lib_ms,
             "ms_sim_b1": times[f"sim B=1 n={model.nv} iters=24"][0],
             "ms_sim_b1024": times[f"sim B={NS_B} n={model.nv} iters=24"][0],
-            "ms_quadruped_sim_b1": times[f"sim B=1 n={quad.nv} iters=24"][0]}
+            "ms_quadruped_sim_b1": times[f"sim B=1 n={quad.nv} iters=24"][0],
+            **{f"{field}_{key}": v for label, key in (
+                (f"qppvm Binv B=1 n={n2} iters=20", "dual_arm_binv_b1"),
+                (f"qppvm sim B=1 n={n2} iters=24", "dual_arm_sim_b1"),
+                (f"qppvm Binv B=1 n={n1} iters=20", "arm7_binv_b1"))
+               for field, v in zip(("ms", "plain_ms", "library_ms",
+                                    "bound_ms"),
+                                   times[label] + (bounds[label][0],))}}
 
 
 def check_plant_step(torch, nsi, loop, res):
@@ -860,9 +928,14 @@ def stack_level_shapes(plugin, state, refs):
     plugin's assembled stack at ``state``."""
     from qppvm_tpu_torch.model import dynamics
 
-    sd = plugin.stack.build(plugin.model,
-                            dynamics.compute_model_data(plugin.model, state),
-                            state, refs, nx=plugin.opt.size)
+    return level_shapes(plugin.stack.build(
+        plugin.model, dynamics.compute_model_data(plugin.model, state), state,
+        refs, nx=plugin.opt.size))
+
+
+def level_shapes(sd):
+    """(n, m, head equalities, tail equalities) of each level of an
+    assembled stack ``sd``."""
     n = sd.lb.shape[1]
     m = sd.C.shape[1] + (n if sd.has_box else 0)
     shapes, tail = [], 0
@@ -1247,6 +1320,203 @@ def phase_step_recovery(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     return counts[0], counts[2]
 
 
+def qppvm_loop(torch, plugin, robot, ticks, trace_path, ref_gen=None):
+    """``ticks`` ticks of ``plugin`` against ``robot`` through
+    runtime/plugin.py::ControlLoop, with a TraceBuffer at ``trace_path``
+    (flushed when the loop closes). Returns (LoopStats, the flushed
+    trace's arrays)."""
+    from qppvm_tpu_torch.runtime.logger import TraceBuffer
+    from qppvm_tpu_torch.runtime.plugin import ControlLoop
+
+    trace = TraceBuffer(trace_path, capacity=ticks)
+    stats = ControlLoop(plugin, robot, period=1e-3, trace=trace,
+                        ref_generator=ref_gen).run(ticks * 1e-3)
+    torch.cuda.synchronize()
+    with np.load(trace_path + ".npz") as data:
+        return stats, {k: data[k] for k in data.files}
+
+
+def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
+    """Phase 11: the reference's QPPVMPlugin through ControlLoop: config 2
+    (the dual arm on the moving sinusoid) and config 1 (the arm holding
+    home), gated as tests/test_qppvm_e2e.py; the NS kernel against the
+    plain NS on the loop's first ticks; the level kernel's profile chained
+    against the plain level solver. Returns ({path: level launches},
+    {path: NS launches})."""
+    import tempfile
+
+    from qppvm_tpu_torch.model import dynamics, kinematics
+    from qppvm_tpu_torch.opt import linalg
+    from qppvm_tpu_torch.plugins.qppvm import QPPVMPlugin
+    from qppvm_tpu_torch.runtime.robot_interface import SimRobot
+    from qppvm_tpu_torch.runtime.trajectory import qppvm_sinusoid
+
+    model = zoo.dual_arm(device=dev)
+    plugin = QPPVMPlugin(model, iters=60)
+    st = model.home_state()
+    data = dynamics.compute_model_data(model, st, need_binv=True)
+    shapes = level_shapes(plugin.stack.build(
+        model, data, st, plugin.stack.ref_init(model, data, st), nx=model.nj))
+    if any(ROBOT_SHAPES.get(sh) != "dual_arm" for sh in shapes):
+        fail(f"dual-arm QPPVM level shapes {shapes} are not phase 2's")
+
+    def sinusoid(t, ctx):
+        return dict(ctx["refs"], LEFT_ARM=plugin.make_refs(ctx["start"], t))
+
+    tmp = tempfile.TemporaryDirectory()
+    robot = SimRobot(model, dt=1e-3, substeps=2)
+    nsi.launches = 0
+    dynamics.plain_inverses = 0
+    level_qp.launches = 0
+    t0 = time.perf_counter()
+    stats, tr = qppvm_loop(torch, plugin, robot, QPPVM_TICKS,
+                           tmp.name + "/dual_arm", sinusoid)
+    run_s = time.perf_counter() - t0
+    ns_launches, plain, levels = (nsi.launches, dynamics.plain_inverses,
+                                  level_qp.launches)
+    # 1 NS launch a tick for Binv and 1 a plant substep, + on_start's Binv
+    ns_expected = (1 + robot.substeps) * QPPVM_TICKS + 1
+    if (ns_launches, plain, levels) != (ns_expected, 0, 0):
+        fail(f"QPPVM loop: {ns_launches} NS launches, {plain} plain "
+             f"inverses, {levels} level launches; expected {ns_expected}, "
+             f"0, 0")
+    if tr["tau_desired"].shape[0] != QPPVM_TICKS:
+        fail(f"QPPVM trace: {tr['tau_desired'].shape[0]} rows")
+    # the left EE after each tick's move against that tick's reference
+    q_after = torch.cat([torch.tensor(tr["q"][1:, 0], dtype=torch.float32,
+                                      device=dev), robot.state.q])
+    p_ee = kinematics.link_pose(model, kinematics.fk(
+        model, type(st).init(model, q=q_after, batch=QPPVM_TICKS)),
+        "arm1_7")[1]
+    p_start = kinematics.link_pose(model, kinematics.fk(model, st),
+                                   "arm1_7")[1]
+    t_ticks = torch.arange(QPPVM_TICKS, device=dev, dtype=torch.float32)
+    p_ref = qppvm_sinusoid(p_start, 1e-3 * t_ticks)   # (T, 3)
+    errs = torch.linalg.norm(p_ee - p_ref, dim=-1)[QPPVM_SETTLE + 1:]
+    err_mean, err_max = float(errs.mean()), float(errs.max())
+    failed = tr["solver_failed"] != 0.0
+    tau_max = model.tau_max.cpu().numpy()
+    over = np.abs(tr["tau_desired"][~failed, 0]) - tau_max
+    print(f"QPPVM dual arm: {QPPVM_TICKS} ticks through ControlLoop, "
+          f"{stats.solver_failures} failed, left EE error after tick "
+          f"{QPPVM_SETTLE}: mean {err_mean:.5f} m, max {err_max:.5f} m; "
+          f"|tau_desired| - tau_max up to {float(over.max()):.3g} Nm on "
+          f"the solved ticks; {ns_launches} NS launches, 0 plain inverses, "
+          f"0 level launches; trace {tr['tau_desired'].shape[0]} rows")
+    if stats.solver_failures > QPPVM_MAX_FAILS:
+        fail(f"QPPVM loop: {stats.solver_failures} failed ticks")
+    if not (err_mean < QPPVM_ERR_MEAN and err_max < QPPVM_ERR_MAX):
+        fail(f"QPPVM loop: EE error mean {err_mean:.4f} max {err_max:.4f}")
+    if not float(over.max()) <= TAU_LIMIT_TOL:
+        fail(f"QPPVM loop: tau_desired outside the torque limits by "
+             f"{float(over.max()):.3g} Nm")
+
+    # the plant alone at zero torque
+    robot.set_reference(tau_ref=torch.zeros_like(robot.state.q))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(QPPVM_SIM_TICKS):
+        robot.move()
+    torch.cuda.synchronize()
+    sim_ms = (time.perf_counter() - t0) / QPPVM_SIM_TICKS * 1e3
+    print(f"[{card}] QPPVM dual arm loop B=1 (ControlLoop, {QPPVM_TICKS} "
+          f"ticks in {run_s:.1f} s): tick p50 {stats.p50_ms:.3f} ms, p99 "
+          f"{stats.p99_ms:.3f} ms, mean {stats.mean_ms:.3f} ms, deadline "
+          f"misses {stats.deadline_misses()} of {QPPVM_TICKS} against 1 ms; "
+          f"plant alone {sim_ms:.3f} ms per tick ({robot.substeps} "
+          f"substeps); control share "
+          f"{stats.mean_ms / (stats.mean_ms + sim_ms):.3f}")
+
+    # the NS kernel against the plain NS on the loop's first ticks
+    def plain_inverse(B, iters=24, reg=0.0):
+        K = B + reg * torch.eye(B.shape[-1], device=B.device)
+        return linalg.spd_inverse_ns(K, iters=iters - 2, refine=2)
+
+    kernel_inverse = dynamics.mass_matrix_inverse
+    dynamics.mass_matrix_inverse = plain_inverse
+    try:
+        nsi.launches = 0
+        _, tr_p = qppvm_loop(torch, plugin, SimRobot(model, dt=1e-3,
+                                                     substeps=2),
+                             QPPVM_COMPARE, tmp.name + "/plain", sinusoid)
+    finally:
+        dynamics.mass_matrix_inverse = kernel_inverse
+    if nsi.launches != 0:
+        fail(f"plain-NS QPPVM ticks made {nsi.launches} NS launches")
+    taus = torch.tensor(tr["tau_desired"][:QPPVM_COMPARE], device=dev)
+    taus_p = torch.tensor(tr_p["tau_desired"], device=dev)
+    ns_err = compare_taus(torch, list(taus), list(taus_p),
+                          "QPPVM NS kernel vs plain NS")
+    print(f"QPPVM first {QPPVM_COMPARE} taus, NS kernel vs plain NS: max "
+          f"abs diff {ns_err:.3g} Nm (atol {TAU_ATOL}, rtol {TAU_RTOL})")
+
+    # the level kernel's profile, chained from the same on_start
+    chain_p = {b: QPPVMPlugin(model, iters=60, solver_opts=dict(
+        rho_updates=0, backend=b)) for b in BACKENDS}
+    refs, warm0, start = chain_p["kernel"].on_start(st)
+    states = [type(st)(q=torch.tensor(tr["q"][k], dtype=torch.float32,
+                                      device=dev),
+                       qd=torch.tensor(tr["qd"][k], dtype=torch.float32,
+                                       device=dev),
+                       base_rot=st.base_rot, base_pos=st.base_pos,
+                       base_vel=st.base_vel) for k in range(QPPVM_COMPARE)]
+    chain_taus = {}
+    for b, pl in chain_p.items():
+        warm, chain_taus[b] = warm0, []
+        level_qp.launches = 0
+        hierarchy.fallbacks = 0
+        for k, s_k in enumerate(states):
+            r = dict(refs, LEFT_ARM=pl.make_refs(start, k * 1e-3))
+            tau, warm, aux = pl.control_loop(s_k, r, warm)
+            if bool(aux.solver_failed.any()):
+                fail(f"QPPVM {b} chain tick {k}: the solve failed")
+            chain_taus[b].append(tau)
+        torch.cuda.synchronize()
+        if b == "kernel":
+            chain_launches = level_qp.launches
+            if (level_qp.launches, hierarchy.fallbacks) != (
+                    2 * QPPVM_COMPARE, 0):
+                fail(f"QPPVM kernel chain: {level_qp.launches} launches, "
+                     f"{hierarchy.fallbacks} fallbacks; expected "
+                     f"{2 * QPPVM_COMPARE} and 0")
+    chain_err = compare_taus(torch, chain_taus["kernel"], chain_taus["torch"],
+                             "QPPVM level-kernel chain")
+    print(f"QPPVM rho_updates 0, {QPPVM_COMPARE} chained ticks: level "
+          f"kernel {chain_launches} launches, 0 fallbacks; tau within "
+          f"{chain_err:.3g} Nm of the plain level solver's")
+
+    # config 1: the arm holding home
+    arm = zoo.arm7(device=dev)
+    arm_plugin = QPPVMPlugin(arm, left_ee="arm1_7", right_ee="arm1_7",
+                             iters=40)
+    arm_robot = SimRobot(arm, dt=1e-3, substeps=2)
+    nsi.launches = 0
+    arm_stats, arm_tr = qppvm_loop(torch, arm_plugin, arm_robot, ARM7_TICKS,
+                                   tmp.name + "/arm7")
+    arm_ns = nsi.launches
+    q_err = float((arm_robot.state.q - arm.q_home).abs().max())
+    qd_max = float(arm_robot.state.qd.abs().max())
+    tau_over = float((np.abs(arm_tr["tau_desired"][:, 0])
+                      - arm.tau_max.cpu().numpy()).max())
+    print(f"QPPVM arm7 hold: {ARM7_TICKS} ticks, {arm_stats.solver_failures} "
+          f"failed, max |q - q_home| {q_err:.4g}, max |qd| {qd_max:.4g}, "
+          f"|tau| - tau_max up to {tau_over:.3g} Nm, {arm_ns} NS launches")
+    print(f"[{card}] QPPVM arm7 loop B=1: tick p50 {arm_stats.p50_ms:.3f} "
+          f"ms, p99 {arm_stats.p99_ms:.3f} ms, mean {arm_stats.mean_ms:.3f} "
+          f"ms")
+    if arm_stats.solver_failures or not (
+            q_err < ARM7_Q_TOL and qd_max < ARM7_QD_TOL
+            and tau_over <= TAU_LIMIT_TOL):
+        fail("QPPVM arm7 hold outside tests/test_qppvm_e2e.py's gates")
+    if arm_ns != (1 + arm_robot.substeps) * ARM7_TICKS + 1:
+        fail(f"QPPVM arm7 loop: {arm_ns} NS launches")
+    tmp.cleanup()
+    return ({"qppvm_dual_arm_loop_b1": levels,
+             "qppvm_kernel_profile_chain_b1": chain_launches},
+            {"qppvm_dual_arm_loop_b1": ns_launches,
+             "qppvm_arm7_loop_b1": arm_ns})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1289,6 +1559,8 @@ def main():
                                    ns_inverse)
     run["step"] = phase_step_recovery(torch, dev, card, hierarchy, level_qp,
                                       ns_inverse, zoo)
+    run["qppvm"] = phase_qppvm(torch, dev, card, hierarchy, level_qp,
+                               ns_inverse, zoo)
     print(card)
     print_kernels_line(torch, run)
 
@@ -1396,6 +1668,7 @@ def print_kernels_line(torch, run):
     quad_launches, quad_ns = run["quad"]
     capture_levels, capture_ns = run["capture"]
     step_launches, step_ns = run["step"]
+    qppvm_levels, qppvm_ns = run["qppvm"]
     ns_row = run["ns_row"]
     ns_row["launches_by_path"] = {"ns_path": ns_row["launches"],
                                   "closed_loop_b1": loop_ns,
@@ -1403,7 +1676,8 @@ def print_kernels_line(torch, run):
                                   "centaur_tick_b1024": centaur_ns,
                                   "quadruped_loop_b1": quad_ns,
                                   **capture_ns,
-                                  "mppi_step_recovery_b512": step_ns}
+                                  "mppi_step_recovery_b512": step_ns,
+                                  **qppvm_ns}
 
     b_ms, b_by = bound_ms(sum(f for f, _ in level_bound),
                           sum(b for _, b in level_bound))
@@ -1426,7 +1700,8 @@ def print_kernels_line(torch, run):
                              "centaur_tick_b1024": centaur_launches,
                              "quadruped_loop_b1": quad_launches,
                              **capture_levels,
-                             "mppi_step_recovery_b512": step_launches}},
+                             "mppi_step_recovery_b512": step_launches,
+                             **qppvm_levels}},
         ns_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

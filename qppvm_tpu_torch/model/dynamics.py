@@ -126,20 +126,22 @@ def ns_kernel_takes(dtype, n: int, max_n: int) -> bool:
     return dtype == torch.float32 and n <= max_n
 
 
-def mass_matrix_inverse(Breg):
-    """The 22 + 2 Newton-Schulz iterations of ``linalg.spd_inverse_ns`` on
-    regularized mass matrices Breg (B, n, n). A CUDA tensor the NS kernel
-    takes goes to it (``ns_inverse.ns_inverse(Breg, 24)``, one launch); any
-    other CUDA tensor runs the plain version and adds one to
-    ``plain_inverses``. A CPU tensor goes through ``ns_inverse.ns_inverse``,
-    which runs the same plain version."""
+def mass_matrix_inverse(B, iters: int = 24, reg: float = 0.0):
+    """``iters`` Newton-Schulz iterations of ``linalg.spd_inverse_ns`` (its
+    iters - 2 plus 2 refinement steps) on mass matrices B (B, n, n), plus
+    ``reg`` I where ``reg`` is not 0. A CUDA tensor the NS kernel takes goes
+    to it (``ns_inverse.ns_inverse(K, iters)``, one launch); any other CUDA
+    tensor runs the plain version and adds one to ``plain_inverses``. A CPU
+    tensor goes through ``ns_inverse.ns_inverse``, which runs the same plain
+    version."""
     global plain_inverses
-    if Breg.device.type == "cuda" and not ns_kernel_takes(
-            Breg.dtype, Breg.shape[-1],
-            ns_inverse.library().ns_inverse_max_n()):
+    K = B if reg == 0.0 else B + reg * torch.eye(B.shape[-1], dtype=B.dtype,
+                                                  device=B.device)
+    if K.device.type == "cuda" and not ns_kernel_takes(
+            K.dtype, K.shape[-1], ns_inverse.library().ns_inverse_max_n()):
         plain_inverses += 1
-        return linalg.spd_inverse_ns(Breg, iters=22, refine=2)
-    return ns_inverse.ns_inverse(Breg, iters=24)
+        return linalg.spd_inverse_ns(K, iters=iters - 2, refine=2)
+    return ns_inverse.ns_inverse(K, iters=iters)
 
 
 def forward_dynamics(model: RobotModel, state: RobotState, tau,
@@ -209,6 +211,7 @@ class ModelData:
     com_pos: torch.Tensor    # (B, 3)
     total_mass: torch.Tensor  # (B,)
     base_vel: torch.Tensor   # (B, 6) [w; v] body coords
+    Binv: Optional[torch.Tensor] = None  # (B, nv, nv), with need_binv
 
 
 def _root_motion(model: RobotModel, data: ModelData, R, dtype):
@@ -292,7 +295,12 @@ def relative_frame_data(model: RobotModel, data: ModelData, distal: str,
     return R_rel, p_rel, J_rel, vel, torch.cat([bias_lin, bias_ang], dim=-1)
 
 
-def compute_model_data(model: RobotModel, state: RobotState) -> ModelData:
+def compute_model_data(model: RobotModel, state: RobotState,
+                       need_binv: bool = False) -> ModelData:
+    """The tick's model data; with ``need_binv`` also the mass matrix's
+    inverse, 18 + 2 Newton-Schulz iterations without regularization
+    (``mass_matrix_inverse(B, 20)``: the NS kernel for float32 on the
+    card)."""
     kin = kinematics.fk(model, state)
     M = mass_matrix(model, state, kin=kin)
     h = nonlinear_term(model, state, kin=kin)
@@ -302,4 +310,5 @@ def compute_model_data(model: RobotModel, state: RobotState) -> ModelData:
     total_mass, com_pos = kinematics.com(model, kin)
     return ModelData(kin=kin, B=M, h=h, J_all=J_all, vel_all=vel_all,
                      bias_all=bias_all, com_pos=com_pos,
-                     total_mass=total_mass, base_vel=state.base_vel)
+                     total_mass=total_mass, base_vel=state.base_vel,
+                     Binv=mass_matrix_inverse(M, 20) if need_binv else None)

@@ -69,6 +69,10 @@ class RobotModel:
     def dtype(self) -> torch.dtype:
         return self.axis.dtype
 
+    def dof_index(self, joint_name: str) -> int:
+        """Index of a joint in q (ValueError for an unknown name)."""
+        return self.joint_names.index(joint_name)
+
     def link_index(self, link_name: str) -> int:
         if link_name == self.root_name:
             return -1

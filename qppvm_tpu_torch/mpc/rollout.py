@@ -376,9 +376,8 @@ def make_rollout_fn(plugin, cfg: RolloutConfig, cost_fn: Callable,
             theta = {k: torch.as_tensor(v, dtype=plugin.dtype,
                                         device=state0.q.device)
                      for k, v in theta.items()}
-        B0 = dynamics.mass_matrix(model, state0)
-        B0 = B0 + 1e-9 * torch.eye(model.nv, dtype=B0.dtype, device=B0.device)
-        binv0 = dynamics.mass_matrix_inverse(B0)
+        binv0 = dynamics.mass_matrix_inverse(
+            dynamics.mass_matrix(model, state0), reg=1e-9)
         anchors0 = init_anchors(model, state0, contact_idx, contact_offs,
                                 plugin.dtype)
         return (state0, refs0, warm0, refs0["waist_task"]["p"], binv0,

@@ -5,6 +5,10 @@ eps-regularization, subject to the stack's constraints AND equality locks
 ``A_j x = A_j x_j*`` for every higher level j < k. All tensors are batched;
 the warm start is a per-level tuple of batched ``QPState``s.
 
+``method`` picks the level algorithm: "admm" (warm-started first-order,
+``opt/qp.py``; the real-time default) or "pdip" (the Mehrotra interior
+point of ``opt/pdip.py``, cold, at a fixed ``pdip_iters``: the accurate
+backstop for heavily saturated levels, where ADMM crawls). Under "admm",
 ``backend`` picks the level solver: "torch" runs qp.solve; "kernel" sends
 each level in the level solver's profile to ``level_qp.solve_level`` (the
 CUDA kernel on the card, its plain version on the CPU). Under "kernel" a
@@ -18,7 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from qppvm_tpu_torch.opt import level_qp, qp
+from qppvm_tpu_torch.opt import level_qp, pdip, qp
 
 # Levels that backend "kernel" ran through qp.solve because
 # they were outside the level solver's profile; readers reset it to 0.
@@ -61,6 +65,15 @@ def warm_start_init(stack: StackData) -> Tuple[qp.QPState, ...]:
 def _solve_level(prob: qp.QPProblem, st: Optional[qp.QPState], opts: dict,
                  backend: str):
     global fallbacks
+    if opts.pop("method") == "pdip":
+        x, info = pdip.solve(prob, iters=opts["pdip_iters"])
+        if st is None:
+            B, n = prob.q.shape
+            st = qp.QPState.zero(B, n, prob.A.shape[1], prob.q.dtype,
+                                 prob.q.device)
+        z = torch.clamp((prob.A @ x[..., None])[..., 0], prob.l, prob.u)
+        return x, dataclasses.replace(st, x=x, z=z), info
+    opts.pop("pdip_iters")
     if backend == "torch":
         return qp.solve(prob, st, **opts)
     if backend != "kernel":
@@ -88,6 +101,7 @@ def solve(stack: StackData, warm: Optional[Tuple[qp.QPState, ...]] = None, *,
           rho_adapt_tol: float = 0.0, rho_scale_min: float = 1e-2,
           cold_ns_iters: Optional[int] = None, scale_iters: int = 5,
           pinv_ns_iters: int = 7, reg_diag: Optional[torch.Tensor] = None,
+          method: str = "admm", pdip_iters: int = 25,
           per_level_opts: Optional[Sequence[Optional[dict]]] = None,
           eq_elim: bool = True, backend: str = "torch"):
     """Solve the cascade for the batch. Returns (x (B, n), warm_states,
@@ -95,7 +109,10 @@ def solve(stack: StackData, warm: Optional[Tuple[qp.QPState, ...]] = None, *,
     A)) + 1)``, shaped per variable by ``reg_diag`` and centred on the warm
     solution. ``per_level_opts[k]`` overrides solver keywords for level k.
     ``eq_elim`` eliminates the stack's leading ``n_eq`` equality rows and
-    the cascade's locks by projection."""
+    the cascade's locks by projection (ADMM only; PDIP keeps them as
+    rows). ``method`` "pdip" solves each level cold in ``pdip_iters``
+    interior-point iterations; its new state is the warm (or zero) state
+    with x and z = clip(A x, l, u)."""
     B, n = stack.lb.shape
     dtype, device = stack.lb.dtype, stack.lb.device
     global_opts = dict(eps=eps, eps_abs_scale=eps_abs_scale, iters=iters,
@@ -107,7 +124,8 @@ def solve(stack: StackData, warm: Optional[Tuple[qp.QPState, ...]] = None, *,
                        rho_adapt_tol=rho_adapt_tol,
                        rho_scale_min=rho_scale_min,
                        cold_ns_iters=cold_ns_iters, scale_iters=scale_iters,
-                       pinv_ns_iters=pinv_ns_iters, eq_elim=eq_elim,
+                       pinv_ns_iters=pinv_ns_iters, method=method,
+                       pdip_iters=pdip_iters, eq_elim=eq_elim,
                        backend=backend)
     locked_rows: List[torch.Tensor] = []
     locked_vals: List[torch.Tensor] = []
@@ -143,7 +161,7 @@ def solve(stack: StackData, warm: Optional[Tuple[qp.QPState, ...]] = None, *,
         prob = qp.QPProblem(P=P, q=qv, A=torch.cat(rows + locked_rows, dim=1),
                             l=torch.cat(lo + locked_vals, dim=1),
                             u=torch.cat(hi + locked_vals, dim=1))
-        if lvl_eq_elim:
+        if lvl_eq_elim and opts["method"] != "pdip":
             # row order is [C; I(box); locks]: the stack's structural
             # equalities lead C, the cascade's locks trail
             opts["n_eq_head"] = stack.n_eq

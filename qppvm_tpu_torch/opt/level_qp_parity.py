@@ -19,8 +19,14 @@ OUTPUTS = ("x", "z", "y", "Kinv", "rho_scale", "prim", "dual", "obj")
 RHO_ATOL, RHO_RTOL = 1e-4, 2e-2
 
 
-def random_problems(B, n, m, h, t, device, seed):
-    """B problems (P, q, A, l, u) with h head and t tail equality rows."""
+def random_problems(B, n, m, h, t, device, seed, locks=False):
+    """B problems (P, q, A, l, u) with h head and t tail equality rows.
+
+    ``locks``: the tail rows are a cascade's locks, A_t x = A_t x0 at a
+    point x0 (0.1 N(0, 1)) inside every inequality row's bounds, so each
+    problem is feasible, as a cascade level is by construction. (Unlocked,
+    6 random tail rows in 7 variables leave about a tenth of the problems
+    infeasible, with multipliers diverging over the iterations.)"""
     g = torch.Generator(device=device).manual_seed(seed)
     rn = lambda *s: torch.randn(*s, generator=g, device=device)  # noqa: E731
     ru = lambda *s: torch.rand(*s, generator=g, device=device)   # noqa: E731
@@ -34,6 +40,10 @@ def random_problems(B, n, m, h, t, device, seed):
     eq[:h] = True
     if t:
         eq[m - t:] = True
+    if locks:
+        Ax0 = (A @ (0.1 * rn(B, n))[..., None])[..., 0]
+        b = torch.where(eq, Ax0, b)
+        lo, hi = torch.minimum(lo, Ax0 - 0.1), torch.maximum(hi, Ax0 + 0.1)
     return P, q, A, torch.where(eq, b, lo), torch.where(eq, b, hi)
 
 
@@ -61,33 +71,73 @@ def check_rho_scale(rho_min, r, r32, r64):
     return ((c - c32).abs() <= bar(c32)) | ((c - c64).abs() <= bar(c64))
 
 
-def check_level_outputs(cfg, prob, state, out):
+def float32_undetermined(ref, ref64, bars):
+    """(B,) bool: items whose plain float32 result lies outside the bars of
+    its own float64 result in x, z, y or Kinv. Float32 does not determine
+    them: at 6 equalities in 7 variables (the arm's QPPVM level 1) random
+    equality blocks include near-singular ones, whose multipliers reach 1e5
+    and move by 1e3 between float32 and float64."""
+    bad = torch.zeros(ref[0].shape[0], dtype=torch.bool, device=ref[0].device)
+    for name in ("x", "z", "y", "Kinv"):
+        i = OUTPUTS.index(name)
+        atol, rtol = bars[name]
+        gap = (ref[i].double() - ref64[i]).abs()
+        bad |= (gap > atol + rtol * ref64[i].abs()).flatten(1).any(1)
+    return bad
+
+
+def check_level_outputs(cfg, prob, state, out, excuse_undetermined=False):
     """Hold kernel outputs ``out`` for problems ``prob`` from ``state``
     against the plain version. Raises AssertionError naming the first
     output outside its bar. Returns the max abs error per output and of
-    the carried rho_scale."""
+    the carried rho_scale.
+
+    With ``excuse_undetermined`` the items ``float32_undetermined`` finds
+    (at most 1% of the batch, or one item) are held, in place of the bars,
+    to the plain version's own float32 error: in x, z, y and Kinv the
+    kernel's largest gap to the float64 result is at most 4 times the
+    plain float32 result's plus the bar's atol (rho_scale is not held
+    there). The count is returned as ``undetermined`` and the gaps are
+    over the other items."""
     ref = level_qp.solve_level_reference(cfg, *prob, *state)
     ref64 = level_qp.solve_level_reference(
         cfg, *(a.double() for a in prob + tuple(state)))
     sc = float(ref[0].abs().max()) + 1.0
     bars = dict(x=(2e-4 * sc, 2e-4), z=(5e-4, 5e-4), y=(5e-4, 5e-4),
                 Kinv=(5e-4, 5e-4), prim=(1e-5, 2e-2), obj=(1e-4, 1e-3))
+    B = ref[0].shape[0]
+    skip = torch.zeros(B, dtype=torch.bool, device=ref[0].device)
+    if excuse_undetermined:
+        skip = float32_undetermined(ref, ref64, bars)
+        assert int(skip.sum()) <= max(1, B // 100), (
+            f"{int(skip.sum())} of {B} items are float32-undetermined")
+        for name in ("x", "z", "y", "Kinv"):
+            i = OUTPUTS.index(name)
+            worst = lambda a: (a.double() - ref64[i]).abs().flatten(1).amax(1)  # noqa: E731
+            ok = worst(out[i]) <= 4.0 * worst(ref[i]) + bars[name][0]
+            assert bool((ok | ~skip).all()), (
+                f"kernel {name} on a float32-undetermined item is further "
+                "from the float64 result than 4 times the plain version")
+    keep = ~skip
     errs = {}
     for name, a, r in zip(OUTPUTS, out, ref):
         assert bool(torch.isfinite(a).all()), f"kernel {name} is not finite"
-        errs[name] = float((a - r).abs().max())
+        errs[name] = float((a - r)[keep].abs().max()) if keep.any() else 0.0
         if name in bars:
             atol, rtol = bars[name]
-            assert bool(torch.all((a - r).abs() <= atol + rtol * r.abs())), (
+            ok = ((a - r).abs() <= atol + rtol * r.abs()).reshape(B, -1).all(1)
+            assert bool((ok | skip).all()), (
                 f"kernel {name} differs from the plain version by "
                 f"{errs[name]:.3g} (atol {atol:.3g}, rtol {rtol})")
     ok = check_rho_scale(cfg.rho_scale_min, out[4], ref[4], ref64[4])
     carried = [v.clamp(cfg.rho_scale_min, 1.0) for v in (out[4], ref[4])]
     errs["carried_rho_scale"] = float((carried[0] - carried[1]).abs().max())
-    bad = (~ok).nonzero().flatten()[:4].tolist()
+    bad = (~ok & ~skip).nonzero().flatten()[:4].tolist()
     assert not bad, (
         "kernel rho_scale outside its bar at items " + ", ".join(
             f"{i} (kernel {float(out[4][i]):.6g}, plain float32 "
             f"{float(ref[4][i]):.6g}, float64 {float(ref64[4][i]):.6g}, "
             f"in {float(state[4][i]):.6g})" for i in bad))
+    if excuse_undetermined:
+        errs["undetermined"] = int(skip.sum())
     return errs

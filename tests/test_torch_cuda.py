@@ -27,10 +27,19 @@ R = 4 instantiation) and an n 49 level with more inequality rows than one
 R = 4 product covers, at B 1 and 37; the capture step's stack (the
 humanoid with 6D wrenches in friction cones, n 50) at B 1 and 37.
 
+Level kernel at the QPPVM stack's shapes (the dual arm's n 15 and the
+arm's n 7: the torque box alone, and with the EE rows locked as tail
+equalities) in QPPVMPlugin's profile with rho_updates 0, at B 1 and 37
+(items that float32 does not determine, ``float32_undetermined``, held to
+the plain version's own float32 error), and one dual-arm QPPVM tick
+through both kernels against the plain tick.
+
 NS-inverse kernel (3xTF32 on the tensor cores): SPD batches K = M M^T +
 0.5 I at n 1 to 139 (inside one 16 x 8 mma tile, on and off the tile
-edges, the quadruped's 22, the centaur's 37, the humanoid's 38, the 64 of
-bench_pallas.py, the unpadded layout above 128) and B 1 / 37, to the bars of tests/test_pallas_linalg.py: atol
+edges, the QPPVM arms' 7 and 15 at 20 iterations, the quadruped's 22,
+the centaur's 37, the humanoid's 38, the 64 of bench_pallas.py, the
+unpadded layout above 128) and B 1 / 37, to the bars of
+tests/test_pallas_linalg.py: atol
 2e-4 + rtol 2e-3 against the plain version, max |K X - I| < 5e-3; a batch
 with non-finite items, which stay non-finite where the plain version is
 without touching the others.
@@ -139,6 +148,58 @@ def test_kernel_matches_plain_version_at_the_rollout_profile(device, n, m, h,
         state = out[:5]
 
 
+# the QPPVM stack's levels on the dual arm (n 15) and the arm (n 7): the
+# torque box alone, then the box with 6 locked EE rows as tail equalities,
+# in QPPVMPlugin's profile with rho_updates 0
+QPPVM_SHAPES = [(15, 15, 0, 0), (15, 21, 0, 6), (7, 7, 0, 0), (7, 13, 0, 6)]
+QPPVM_LEVEL = dict(iters=60, warm_kinv_iters=12, scale_iters=5,
+                   pinv_ns_iters=7)
+
+
+@pytest.mark.parametrize("n,m,h,t", QPPVM_SHAPES)
+@pytest.mark.parametrize("B", [1, 37])
+def test_kernel_matches_plain_version_at_the_qppvm_shapes(device, n, m, h, t,
+                                                          B):
+    cfg = level_qp.LevelQPConfig(n_eq_head=h, n_eq_tail=t, **QPPVM_LEVEL)
+    prob = parity.random_problems(B, n, m, h, t, device, seed=2, locks=True)
+    state = parity.zero_state(B, n, m, device)
+    for _ in range(2):   # cold from zero, then warm
+        out = level_qp.solve_level(cfg, *prob, *state)
+        torch.cuda.synchronize()
+        parity.check_level_outputs(cfg, prob, state, out, True)
+        state = out[:5]
+
+
+def test_qppvm_tick_kernel_matches_plain(device):
+    """One dual-arm QPPVM tick in the level kernel's profile (rho_updates
+    0, backend "kernel"): 2 level launches, no fallback, 1 NS launch (the
+    mass matrix's inverse), tau within chip_smoke.py's chain bars of the
+    same tick through the plain level solver and the plain NS inverse."""
+    from qppvm_tpu_torch.model import dynamics, zoo
+    from qppvm_tpu_torch.opt import hierarchy
+    from qppvm_tpu_torch.plugins.qppvm import QPPVMPlugin
+
+    model = zoo.dual_arm(device=device)
+    plugins = [QPPVMPlugin(model, iters=60, solver_opts=dict(
+        rho_updates=0, backend=b)) for b in ("kernel", "torch")]
+    st = model.home_state()
+    refs, warm, start = plugins[0].on_start(st)
+    refs = dict(refs, LEFT_ARM=plugins[0].make_refs(start, 0.5))
+    level_qp.launches = ns_inverse.launches = hierarchy.fallbacks = 0
+    tau, _, aux = plugins[0].control_loop(st, refs, warm)
+    torch.cuda.synchronize()
+    assert (level_qp.launches, hierarchy.fallbacks) == (2, 0)
+    assert ns_inverse.launches == 1
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dynamics, "mass_matrix_inverse",
+                   lambda B, iters=24, reg=0.0: ns_inverse.ns_inverse_reference(
+                       B, iters))
+        tau_ref, _, aux_ref = plugins[1].control_loop(st, refs, warm)
+    assert not aux.solver_failed.any() and not aux_ref.solver_failed.any()
+    assert bool(((tau - tau_ref).abs() <= 5e-3 + 1e-3 * tau_ref.abs()).all())
+    assert float((tau - aux.h).abs().max()) > 1e-2   # the task acts
+
+
 def _ns_batch(device, B, n, seed):
     g = torch.Generator(device=device).manual_seed(seed)
     M = torch.randn(B, n, n, generator=g, device=device)
@@ -153,7 +214,8 @@ def _ns_passes(K, X, ref):
     return close & (resid.amax(1) < 5e-3)
 
 
-@pytest.mark.parametrize("n,iters", [(1, 26), (7, 26), (8, 26), (16, 24),
+@pytest.mark.parametrize("n,iters", [(1, 26), (7, 20), (7, 26), (8, 26),
+                                     (15, 20), (15, 24), (16, 24),
                                      (22, 24), (37, 24),
                                      (38, 24), (40, 26), (44, 24), (63, 26),
                                      (64, 26), (65, 26), (100, 26),

@@ -1,0 +1,537 @@
+"""Parity of the port's QPPVM slice with qppvm_tpu on the dual arm (config
+2): the mass-matrix inverse of ``compute_model_data(need_binv=True)``, the
+torque tasks and constraints of ``tasks/torque.py``, ``opt/pdip.py`` alone
+and as the cascade's ``method="pdip"``, the plugin's ``on_start`` and 5
+chained closed-loop ticks on the reference's moving sinusoid; then, on
+the port alone, the A tau = F property of tests/test_qppvm_e2e.py, the
+drive PD profile and elbow pair, and the level parity check's problems
+and rule at the arm's QPPVM level-1 shape (``level_qp_parity``).
+
+The same numpy-seeded inputs go to both sides in float32 (the suite
+enables x64, so the JAX side is pinned). The JAX side compiles five
+programs once, side by side on threads: the task rows (with the PDIP
+cascade), the PDIP solves, the plugin's on_start, its tick and the plant
+step.
+
+Tolerances:
+- model data, task rows and bounds, references: rtol 1e-4 with an absolute
+  floor of 1e-4 of each array's scale (float32 sums in another order; a
+  wrong row, gain, frame or metric moves them by O(1) of their scale);
+- the Newton-Schulz Binv: the same bars, and bitwise the port's
+  ``ns_inverse.ns_inverse(B, 20)`` (the NS kernel's plain version);
+- PDIP, alone and as the cascade's method, in float64 on both sides: x
+  and the objective to 1e-7 of their scale alone (the packages agree to
+  1e-9 there), x and z to 1e-5 of their scale in the cascade (measured
+  8e-7: the Schur solves' fixed Newton-Schulz budget on the locked level
+  leaves that much); the dual residual is not compared, it rises in late
+  iterations in both packages and differs by tens of percents. In float32
+  its late Newton steps are roundoff in both packages:
+  each lands 1e-2 to 6e-2 from the float64 solution on these QPs, so no
+  float32 bar would tell a fault from the noise (ROADMAP section 3);
+- on_start's warm state and the ticks' torques: the level-kernel bars of
+  tests/test_pallas_qp.py (x to 2e-4 of its scale) and tau to 1e-3 of its
+  scale, a hundredth of what a wrong task row moves it; rho_scale
+  exactly 1 on both sides (see the on_start test).
+"""
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qppvm_tpu.model import dynamics as jdyn
+from qppvm_tpu.model import zoo as jzoo
+from qppvm_tpu.opt import hierarchy as jhier
+from qppvm_tpu.opt import pdip as jpdip
+from qppvm_tpu.opt import qp as jqp
+from qppvm_tpu.plugins.qppvm import QPPVMPlugin as JQPPVM
+from qppvm_tpu.runtime.robot_interface import SimRobot as JSimRobot
+from qppvm_tpu.tasks import torque as jtorque
+from qppvm_tpu.tasks.base import AssembleCtx as JCtx
+from qppvm_tpu_torch.model import convert, dynamics, zoo
+from qppvm_tpu_torch.opt import hierarchy, level_qp, ns_inverse, pdip, qp
+from qppvm_tpu_torch.opt import level_qp_parity as parity
+from qppvm_tpu_torch.plugins.qppvm import QPPVMPlugin
+from qppvm_tpu_torch.runtime.robot_interface import SimRobot
+from qppvm_tpu_torch.tasks import torque
+from qppvm_tpu_torch.tasks.base import AssembleCtx
+
+torch.set_num_threads(1)
+B = 2
+TICKS = 5
+PDIP_ITERS = 18
+# the cascade's PDIP: the dual arm's box-bound torques, a tight box so
+# that some bounds are active
+PDIP_TAU_SCALE = 0.1
+
+
+def _close(actual, desired, rtol=1e-4, floor=1e-4):
+    actual = np.asarray(actual, np.float64)
+    desired = np.asarray(desired, np.float64)
+    assert actual.shape == desired.shape, (actual.shape, desired.shape)
+    scale = float(np.max(np.abs(desired), initial=0.0)) + 1.0
+    np.testing.assert_allclose(actual, desired, rtol=rtol, atol=floor * scale)
+
+
+def _f32(tree):
+    return jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), tree)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _tasks(mod, nj, rng):
+    """The torque tasks and constraints under test, built alike in both
+    packages (``mod`` is either's tasks/torque.py): the plugin's EE pair
+    and joint task, a 6-row task relative to the torso with diagonal
+    gains, a 4-row task in the identity metric, a joint task without the
+    inertia, the torque limits (the model's and given ones) and the joint
+    limits with a margin."""
+    Kc = np.diag(rng.uniform(100.0, 900.0, 6)).astype(np.float32)
+    Dc = np.diag(rng.uniform(10.0, 90.0, 6)).astype(np.float32)
+    K = rng.uniform(1.0, 10.0, nj).astype(np.float32)
+    D = rng.uniform(0.5, 4.0, nj).astype(np.float32)
+    tmax = rng.uniform(20.0, 80.0, nj).astype(np.float32)
+    arr = (lambda a: torch.tensor(a)) if mod is torque else jnp.asarray
+    tasks = {
+        "LEFT_ARM": mod.CartesianImpedanceCtrl(
+            "LEFT_ARM", "arm1_7", indices=[0, 1, 2],
+            stiffness=arr(700.0 * np.eye(6, dtype=np.float32)),
+            damping=arr(70.0 * np.eye(6, dtype=np.float32))),
+        "REL": mod.CartesianImpedanceCtrl(
+            "REL", "arm2_7", base_link="torso", stiffness=arr(Kc),
+            damping=arr(Dc)),
+        "IDENTITY": mod.CartesianImpedanceCtrl(
+            "IDENTITY", "arm2_5", indices=[0, 1, 2, 5],
+            use_inertia_matrix=False),
+        "JOINT": mod.JointImpedanceCtrl("JOINT", stiffness=arr(K),
+                                        damping=arr(D)),
+        "JOINT_NOI": mod.JointImpedanceCtrl("JOINT_NOI",
+                                            use_inertia_matrix=False),
+    }
+    tasks["REL"].weight = 2.5
+    cons = {"TAU": mod.TorqueLimits(),
+            "TAU_GIVEN": mod.TorqueLimits(tau_max=arr(tmax),
+                                          tau_min=arr(-0.5 * tmax)),
+            "JLIM": mod.JointLimits(gain_k=800.0, gain_d=40.0, margin=0.3)}
+    return tasks, cons
+
+
+def _random_qps(rng, Bq=4, n=12, m=10):
+    """Bq QPs made as tests/test_qp.py makes them; items 0 and 1 with 2
+    equality rows, item 3 with one row unbounded below."""
+    M = rng.standard_normal((Bq, n, n))
+    P = M @ M.transpose(0, 2, 1) + 0.1 * np.eye(n)
+    q = rng.standard_normal((Bq, n))
+    A = rng.standard_normal((Bq, m, n))
+    c = rng.standard_normal((Bq, m))
+    width = rng.uniform(0.1, 1.0, (Bq, m))
+    l, u = c - width, c + width
+    l[:2, :2] = u[:2, :2] = c[:2, :2]
+    l[3, 4] = -1e20
+    return P, q, A, l, u
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    rng = np.random.default_rng(0)
+    jm = jzoo.dual_arm()
+    nj = jm.nj
+    plugin = JQPPVM(jm, iters=60)
+    tasks, cons = _tasks(jtorque, nj, np.random.default_rng(1))
+
+    # the task states: home + 0.2 N(0, 1) on q, 0.5 N(0, 1) on qd
+    home = _np(jm.home_state())
+    states = jax.tree.map(lambda a: np.broadcast_to(a, (B,) + a.shape), home)
+    states = states.__class__(
+        q=(home.q + 0.2 * rng.standard_normal((B, nj))).astype(np.float32),
+        qd=(0.5 * rng.standard_normal((B, nj))).astype(np.float32),
+        base_rot=states.base_rot, base_pos=states.base_pos,
+        base_vel=states.base_vel)
+    # references: each task's at the home state (the port's ref_init, run
+    # eagerly at a fraction of the reference's cost; the rows program holds
+    # ref_init to the reference's), moved by 0.05 N(0, 1) in p and given
+    # random twists, weights and joint targets
+    tm = zoo.dual_arm(device="cpu")
+    hstate = tm.home_state()
+    hdata = dynamics.compute_model_data(tm, hstate, need_binv=True)
+    refs = {}
+    for name, t in _tasks(torque, nj, np.random.default_rng(1))[0].items():
+        r = {k: v[0].numpy() for k, v in t.ref_init(tm, hdata, hstate).items()}
+        if "p" in r:
+            r["p"] = r["p"] + 0.05 * rng.standard_normal(3)
+            r["v"] = rng.standard_normal(6)
+            r["w"] = rng.uniform(0.5, 2.0)
+        else:
+            r["q"] = r["q"] + 0.1 * rng.standard_normal(nj)
+            r["w"] = rng.uniform(0.5, 2.0, nj)
+        refs[name] = {k: np.broadcast_to(
+            np.asarray(v, np.float32), (B,) + np.shape(v)).copy()
+            for k, v in r.items()}
+    qps = _random_qps(rng)
+
+    def rows(s, r):
+        data = jdyn.compute_model_data(jm, s, need_binv=True)
+        ctx = JCtx(model=jm, data=data, state=s, refs=r, nx=nj,
+                   dtype=jnp.float32)
+        out = {"Binv": data.Binv, "B": data.B, "h": data.h}
+        for name, t in tasks.items():
+            out[name] = t.assemble(ctx)
+            if isinstance(t, jtorque.CartesianImpedanceCtrl):
+                out[name + "/force"] = t.spring_damper_force(ctx)
+                out[name + "/ref_init"] = t.ref_init(jm, data, s)
+        for name, c in cons.items():
+            out[name] = c.assemble(ctx)[2:]
+        # the plugin's stack, its torque box tightened, through the
+        # cascade's interior point
+        sd = plugin.stack.build(jm, data, s, {"LEFT_ARM": r["LEFT_ARM"],
+                                              "RIGHT_ARM": r["LEFT_ARM"],
+                                              "joint_impedance": r["JOINT"]},
+                                nx=nj, dtype=jnp.float32)
+        sd = jax.tree.map(lambda a: a.astype(jnp.float64), sd)
+        sd = sd.__class__(levels=sd.levels, C=sd.C, lC=sd.lC, uC=sd.uC,
+                          lb=PDIP_TAU_SCALE * sd.lb, ub=PDIP_TAU_SCALE * sd.ub,
+                          n_eq=sd.n_eq, has_box=sd.has_box)
+        x, warm, infos = jhier.solve(sd, None, eps=1.0, method="pdip",
+                                     pdip_iters=PDIP_ITERS)
+        out["cascade"] = (x, warm, infos)
+        return out
+
+    def pdip_solve(P, q, A, l, u):
+        return jpdip.solve(jqp.QPProblem(P=P, q=q, A=A, l=l, u=u),
+                           iters=PDIP_ITERS)
+
+    # on_start at the home state, then TICKS closed-loop ticks with the
+    # plant (dt 1 ms, 2 substeps) on the sinusoid
+    robot = JSimRobot(jm, state=_f32(jm.home_state()), dt=1e-3, substeps=2)
+    st0 = robot.state
+    # on_start is traced with a recorder of each polish's decision
+    polish = []
+    orig_polish = jqp._polish
+
+    def record_polish(P, q, A, l, u, x, y, **kw):
+        x_new, y_new = orig_polish(P, q, A, l, u, x, y, **kw)
+        jax.debug.callback(lambda acc: polish.append(bool(acc)),
+                           jnp.any(x_new != x), ordered=True)
+        return x_new, y_new
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jqp, "_polish", record_polish)
+        start = jax.jit(plugin.on_start).lower(st0)
+    refs_s, warm_s, pose_s = start.out_info
+    tick_refs = dict(refs_s, LEFT_ARM=jax.eval_shape(
+        lambda p: plugin.make_refs(p, 0.0), pose_s))
+    lowered = [jax.jit(jax.vmap(rows)).lower(_f32(states), _f32(refs)),
+               jax.jit(jax.vmap(pdip_solve)).lower(*qps), start,
+               jax.jit(plugin._step_impl).lower(st0, tick_refs, warm_s),
+               robot._step.lower(st0, robot._anchors, robot._tau_ref,
+                                 robot._q_ref, robot.k, robot.d)]
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        rows_fn, pdip_fn, start, step, sim = pool.map(
+            lambda lw: lw.compile(), lowered)
+    robot._step = sim
+    refs0, warm0, pose0 = start(st0)
+    jax.block_until_ready(warm0)
+    jax.effects_barrier()
+    ticks, warm = [], warm0
+    for i in range(TICKS):
+        r = dict(refs0, LEFT_ARM=plugin.make_refs(pose0, i * 1e-3))
+        tau, warm, aux = step(robot.state, r, warm)
+        ticks.append(_np((tau, aux, r["LEFT_ARM"])))
+        robot.set_reference(tau_ref=tau)
+        robot.move()
+    return dict(states=states, refs=refs, qps=qps,
+                rows=_np(rows_fn(_f32(states), _f32(refs))),
+                pdip=_np(pdip_fn(*qps)), home=home, refs0=_np(refs0),
+                warm0=_np(warm0), pose0=_np(pose0), polish=polish,
+                ticks=ticks,
+                final_q=np.asarray(robot.state.q))
+
+
+@pytest.fixture(scope="module")
+def torch_side():
+    model = zoo.dual_arm(device="cpu")
+    return dict(model=model, plugin=QPPVMPlugin(model, iters=60))
+
+
+def _state(arrays):
+    return convert.robot_state(
+        {k: getattr(arrays, k) for k in convert.STATE_FIELDS}, device="cpu")
+
+
+def _batched_home(home):
+    return _state(jax.tree.map(lambda a: a[None], home))
+
+
+def test_binv_is_the_ns_inverse(jax_side, torch_side):
+    """``Binv`` is ``mass_matrix_inverse(B, 20)``: bitwise the NS kernel's
+    plain version, and the reference's 18 + 2 NS iterations."""
+    model = torch_side["model"]
+    ts = _state(jax_side["states"])
+    data = dynamics.compute_model_data(model, ts, need_binv=True)
+    assert dynamics.compute_model_data(model, ts).Binv is None
+    assert torch.equal(data.Binv, ns_inverse.ns_inverse(data.B, 20))
+    ref = jax_side["rows"]
+    _close(data.B, ref["B"])
+    _close(data.h, ref["h"])
+    _close(data.Binv, ref["Binv"])
+
+
+def test_torque_tasks_match_reference(jax_side, torch_side):
+    model = torch_side["model"]
+    tasks, cons = _tasks(torque, model.nj, np.random.default_rng(1))
+    ts = _state(jax_side["states"])
+    refs = convert.refs(jax_side["refs"], device="cpu")
+    data = dynamics.compute_model_data(model, ts, need_binv=True)
+    ctx = AssembleCtx(model=model, data=data, state=ts, refs=refs,
+                      nx=model.nj)
+    ref = jax_side["rows"]
+    for name, t in tasks.items():
+        A, b = t.assemble(ctx)
+        _close(A, ref[name][0])
+        _close(b, ref[name][1])
+        if isinstance(t, torque.CartesianImpedanceCtrl):
+            for ours, theirs in zip(t.spring_damper_force(ctx),
+                                    ref[name + "/force"]):
+                _close(ours, theirs)
+            init = t.ref_init(model, data, ts)
+            for k, v in ref[name + "/ref_init"].items():
+                _close(init[k], v)
+    assert tuple(tasks["REL"].assemble(ctx)[0].shape) == (B, 6, model.nj)
+    for name, c in cons.items():
+        kind, C, lb, ub = c.assemble(ctx)
+        assert kind == "box" and C is None
+        _close(lb, ref[name][0])
+        _close(ub, ref[name][1])
+
+
+def test_pdip_matches_reference(jax_side):
+    """Seeded QPs, two with equality rows and one with a row unbounded
+    below, in one batch (float64, see the module's docstring)."""
+    x_ref, info_ref = jax_side["pdip"]
+    P, q, A, l, u = (torch.tensor(a) for a in jax_side["qps"])
+    x, info = pdip.solve(qp.QPProblem(P=P, q=q, A=A, l=l, u=u),
+                         iters=PDIP_ITERS)
+    _close(x, x_ref, rtol=1e-7, floor=1e-7)
+    _close(info.obj, info_ref.obj, rtol=1e-7, floor=1e-7)
+    np.testing.assert_allclose(info.prim_res, info_ref.prim_res, atol=1e-9)
+    Ax = (A @ x[..., None])[..., 0]
+    np.testing.assert_allclose(Ax[:2, :2], l[:2, :2], atol=1e-9)
+    assert bool((Ax[2:] >= l[2:] - 1e-9).all() & (Ax <= u + 1e-9).all())
+
+
+def test_pdip_cascade_matches_reference(jax_side, torch_side):
+    """The plugin's stack with its torque box at a tenth (bounds active)
+    solved cold by ``hierarchy.solve(method="pdip")``."""
+    plugin = torch_side["plugin"]
+    model = torch_side["model"]
+    ts = _state(jax_side["states"])
+    r = convert.refs(jax_side["refs"], device="cpu")
+    data = dynamics.compute_model_data(model, ts, need_binv=True)
+    sd = plugin.stack.build(model, data, ts, {
+        "LEFT_ARM": r["LEFT_ARM"], "RIGHT_ARM": r["LEFT_ARM"],
+        "joint_impedance": r["JOINT"]}, nx=model.nj)
+    f64 = lambda a: a.double()  # noqa: E731
+    sd = hierarchy.StackData(
+        levels=tuple(hierarchy.LevelData(A=f64(lv.A), b=f64(lv.b))
+                     for lv in sd.levels),
+        C=f64(sd.C), lC=f64(sd.lC), uC=f64(sd.uC),
+        lb=PDIP_TAU_SCALE * f64(sd.lb), ub=PDIP_TAU_SCALE * f64(sd.ub),
+        n_eq=sd.n_eq, has_box=sd.has_box)
+    x, warm, infos = hierarchy.solve(sd, None, eps=1.0, method="pdip",
+                                     pdip_iters=PDIP_ITERS)
+    x_ref, warm_ref, infos_ref = jax_side["rows"]["cascade"]
+    _close(x, x_ref, rtol=1e-5, floor=1e-5)
+    assert bool((torch.minimum(x - sd.lb, sd.ub - x) < 1e-4).any())
+    for ours, theirs, info, info_ref in zip(warm, warm_ref, infos,
+                                            infos_ref):
+        _close(ours.x, theirs.x, rtol=1e-5, floor=1e-5)
+        _close(ours.z, theirs.z, rtol=1e-5, floor=1e-5)
+        assert torch.equal(ours.Kinv, torch.zeros_like(ours.Kinv))
+        np.testing.assert_allclose(info.prim_res, info_ref.prim_res,
+                                   rtol=1e-4, atol=1e-9)
+
+
+def test_on_start_matches_reference(jax_side, torch_side):
+    """References, start pose and the seeded warm state. The polish
+    acceptance that decides ForceAcc's on_start by float32 roundoff
+    (ROADMAP section 3) does not on the dual arm at home: both sides reject
+    each of the 4 polishes, so no decision is imposed, and x, z, y and the
+    carried KKT inverses agree at the level-kernel bars. rho_scale ends at
+    its ceiling 1 on both sides."""
+    plugin = torch_side["plugin"]
+    polish = []
+    orig_polish = qp._polish
+
+    def record_polish(*args, **kw):
+        x_new, y_new = orig_polish(*args, **kw)
+        polish.append(bool(torch.any(x_new != args[5])))
+        return x_new, y_new
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(qp, "_polish", record_polish)
+        refs, warm, pose = plugin.on_start(_batched_home(jax_side["home"]))
+    assert polish == jax_side["polish"] == [False] * 4
+    for name, r in jax_side["refs0"].items():
+        for k, v in r.items():
+            _close(refs[name][k][0], v)
+    for k, v in jax_side["pose0"].items():
+        _close(pose[k][0], v)
+    for ours, ref in zip(warm, jax_side["warm0"]):
+        sc = float(np.max(np.abs(ref.x))) + 1.0
+        np.testing.assert_allclose(ours.x[0], ref.x, atol=2e-4 * sc,
+                                   rtol=2e-4)
+        for k in ("z", "y", "Kinv"):
+            _close(getattr(ours, k)[0], getattr(ref, k), rtol=5e-4,
+                   floor=5e-4)
+        assert float(ours.rho_scale[0]) == float(ref.rho_scale) == 1.0
+
+
+def test_closed_loop_ticks_match_reference(jax_side, torch_side):
+    """TICKS chained ticks against the plant on the sinusoid, from the
+    reference's on_start (its references and warm state carried across),
+    each side with its own plant: tau, tau_qp, h, the failure flag, the
+    primal residual and the EE wrenches."""
+    plugin, model = torch_side["plugin"], torch_side["model"]
+    robot = SimRobot(model, state=_batched_home(jax_side["home"]), dt=1e-3,
+                     substeps=2)
+    refs0 = convert.refs({k: {kk: np.asarray(v)[None] for kk, v in r.items()}
+                          for k, r in jax_side["refs0"].items()},
+                         device="cpu")
+    pose = convert.refs({k: np.asarray(v)[None]
+                         for k, v in jax_side["pose0"].items()},
+                        device="cpu")
+    warm = convert.qp_states(
+        [{k: np.asarray(getattr(lv, k))[None] for k in convert.QPSTATE_FIELDS}
+         for lv in jax_side["warm0"]], device="cpu")
+    for i, (tau_ref, aux_ref, left_ref) in enumerate(jax_side["ticks"]):
+        refs = dict(refs0, LEFT_ARM=plugin.make_refs(pose, i * 1e-3))
+        _close(refs["LEFT_ARM"]["p"][0], left_ref["p"], rtol=1e-6,
+               floor=1e-6)
+        tau, warm, aux = plugin.control_loop(robot.state, refs, warm)
+        assert not bool(aux.solver_failed.any())
+        assert bool(aux.solver_failed[0]) == bool(aux_ref.solver_failed)
+        _close(tau[0], tau_ref, rtol=1e-3, floor=1e-3)
+        _close(aux.tau_qp[0], aux_ref.tau_qp, rtol=1e-3, floor=1e-3)
+        _close(aux.h[0], aux_ref.h)
+        _close(aux.ee_left_err[0], aux_ref.ee_left_err, rtol=1e-3, floor=1e-3)
+        _close(aux.ee_right_err[0], aux_ref.ee_right_err, rtol=1e-3,
+               floor=1e-3)
+        np.testing.assert_allclose(aux.prim_res[0], aux_ref.prim_res,
+                                   atol=1e-5, rtol=2e-2)
+        robot.set_reference(tau_ref=tau)
+        robot.move()
+    _close(robot.state.q[0], jax_side["final_q"], rtol=1e-5, floor=1e-6)
+
+
+def test_cartesian_task_achieves_wrench():
+    """tests/test_qppvm_e2e.py's A tau = F property on the port: one
+    unconstrained Cartesian task on the arm, its reference displaced 5 cm;
+    the QP's torque makes the EE feel the commanded wrench."""
+    model = zoo.arm7(device="cpu")
+    plugin = QPPVMPlugin(model, left_ee="arm1_7", right_ee="arm1_7",
+                         iters=80)
+    state = model.home_state()
+    refs, warm, _ = plugin.on_start(state)
+    la = dict(refs["LEFT_ARM"])
+    la["p"] = la["p"] + torch.tensor([0.0, 0.05, 0.0])
+    refs = dict(refs, LEFT_ARM=la, RIGHT_ARM=la)
+    _, _, aux = plugin.control_loop(state, refs, warm)
+    data = dynamics.compute_model_data(model, state, need_binv=True)
+    ctx = AssembleCtx(model=model, data=data, state=state, refs=refs,
+                      nx=model.nj)
+    A, b = plugin.ee_left.assemble(ctx)
+    assert float(b.abs().max()) > 10.0   # a 35 N spring force
+    np.testing.assert_allclose((A @ aux.tau_qp[..., None])[..., 0], b,
+                               atol=2e-3)
+
+
+def test_drive_pd_profile_and_elbow_tasks():
+    """The drive PD zeroed except on the wrists, and the elbow pair built
+    on arm{1,2}_4 outside the stack, assembling finite rows."""
+    model = zoo.dual_arm(device="cpu")
+    plugin = QPPVMPlugin(model)
+    k, d = plugin.drive_pd_profile(torch.full((model.nj,), 500.0),
+                                   torch.full((model.nj,), 20.0))
+    wrists = [model.dof_index(f"j_arm{a}_{j}") for a in (1, 2)
+              for j in (5, 6, 7)]
+    keep = torch.zeros(model.nj, dtype=torch.bool)
+    keep[wrists] = True
+    assert torch.equal(k, torch.where(keep, 500.0, 0.0))
+    assert torch.equal(d, torch.where(keep, 20.0, 0.0))
+    state = model.home_state()
+    data = dynamics.compute_model_data(model, state, need_binv=True)
+    refs = {"ELBOW_LEFT": plugin.elbow_left.ref_init(model, data, state)}
+    A, b = plugin.elbow_left.assemble(AssembleCtx(
+        model=model, data=data, state=state, refs=refs, nx=model.nj))
+    assert tuple(A.shape) == (1, 3, model.nj) and tuple(b.shape) == (1, 3)
+    assert bool(torch.isfinite(A).all() & torch.isfinite(b).all())
+    assert plugin.elbow_left.distal_link == "arm1_4"
+    names = {t.name for lv in plugin.stack.levels for t in lv
+             for t in t.base_tasks()}
+    assert names == {"LEFT_ARM", "RIGHT_ARM", "joint_impedance"}
+    with pytest.raises(ValueError, match="fixed-base"):
+        QPPVMPlugin(zoo.quadruped(device="cpu"))
+
+
+def test_float32_undetermined_items_rule():
+    """The level parity check's problems and rule for the arm's level-1
+    shape (7 variables, 6 tail equalities): with ``locks`` the random
+    problems are feasible, as a cascade level is; their random equality
+    blocks still include near-singular ones, and the items whose plain
+    float32 result is outside
+    the bars of its float64 result are few and are held to 4 times the
+    plain version's own float32 error; every other item keeps the bars.
+    A stand-in kernel output (the plain version's) passes; moved within
+    that rule on an undetermined item it passes, moved beyond it fails,
+    and moved by a bar's width on a determined item it fails."""
+    cfg = level_qp.LevelQPConfig(n_eq_tail=6, iters=60, warm_kinv_iters=12,
+                                 scale_iters=5, pinv_ns_iters=7)
+
+    def solve(prob, state):
+        ref = level_qp.solve_level_reference(cfg, *prob, *state)
+        ref64 = level_qp.solve_level_reference(
+            cfg, *(a.double() for a in prob + state))
+        bars = dict(x=(2e-4 * (float(ref[0].abs().max()) + 1.0), 2e-4),
+                    z=(5e-4, 5e-4), y=(5e-4, 5e-4), Kinv=(5e-4, 5e-4))
+        return ref, parity.float32_undetermined(ref, ref64, bars), ref64
+
+    # unlocked, random tail rows leave a tenth of the problems at this
+    # shape infeasible; locked at a feasible point, none
+    zero = parity.zero_state(1024, 7, 13, "cpu")
+    infeasible = [int((solve(parity.random_problems(
+        1024, 7, 13, 0, 6, "cpu", seed=33, locks=locks), zero)[2][5]
+        > 1e-2).sum()) for locks in (False, True)]
+    assert infeasible[0] > 50 and infeasible[1] == 0, infeasible
+    # a batch of chip_smoke.py phase 2's size still holds about one item
+    # float32 does not determine; the test keeps it with 99 others
+    prob = parity.random_problems(1024, 7, 13, 0, 6, "cpu", seed=33,
+                                  locks=True)
+    _, skip, _ = solve(prob, zero)
+    assert 1 <= int(skip.sum()) <= 10
+    keep = torch.cat([skip.nonzero()[:1, 0], (~skip).nonzero()[:99, 0]])
+    prob = tuple(a[keep] for a in prob)
+    state = parity.zero_state(100, 7, 13, "cpu")
+    ref, skip, ref64 = solve(prob, state)
+    assert skip.tolist() == [True] + [False] * 99
+    assert parity.check_level_outputs(cfg, prob, state, ref,
+                                      True)["undetermined"] == 1
+    i, j = 0, 1
+    spread = float((ref[2][i].double() - ref64[2][i]).abs().max())
+
+    def moved(item, dy):
+        y = ref[2].clone()
+        y[item] += dy
+        return (ref[0], ref[1], y) + tuple(ref[3:])
+
+    parity.check_level_outputs(cfg, prob, state, moved(i, spread), True)
+    with pytest.raises(AssertionError, match="undetermined item"):
+        parity.check_level_outputs(cfg, prob, state,
+                                   moved(i, 10.0 * spread), True)
+    with pytest.raises(AssertionError, match="kernel y differs"):
+        parity.check_level_outputs(cfg, prob, state,
+                                   moved(j, 2e-3 * (1.0 + ref[2][j].abs())),
+                                   True)
