@@ -113,7 +113,42 @@ Phases, each fatal on failure:
    from one on_start: 2 level launches and 0 fallbacks a tick, tau held to
    the plain level solver's chain at phase 3's bars. Config 1, the arm
    (iters 40) holding home for 500 ticks: no failure, |q - q_home| < 0.05,
-   |qd| < 0.5, |tau| <= tau_max + 1e-4; ms a tick.
+   |qd| < 0.5, |tau| <= tau_max + 1e-4; ms a tick;
+12. the quadruped's first walk stride, as tests/test_gait_walk.py sets it
+   up (friction cones at mu 0.5, switchable contacts, iters 60; SimRobot at
+   dt 1 ms in 2 substeps; the walk's LegLiftPhases, shift_mode "edge",
+   touch_depth 0.012), n_strides 1: 1,750 ticks and the 300-tick tail,
+   the controller reading only runtime/estimator.py's FloatingBaseEstimator
+   (its gates the previous tick's references), in the level kernel's
+   profile (rho_updates 0); 2 level launches, 0 fallbacks and 2 NS launches
+   a tick; gated on 0 solver failures, foot_hl advanced >= 75% of 6 cm,
+   the stance feet within 2 cm, up > 0.98, base z within 0.08 m, every
+   foot's fz >= 10 N (within 1e-3) on the last tick, the estimate within
+   2 cm of the plant's base on every tick; the first 5 torques held to the
+   same loop through the plain level solver; the tick's stages (estimator,
+   refs_at, control, plant) timed;
+13. the async plan/act pipeline (runtime/async_mpc.py) on the humanoid, as
+   tests/test_async_mpc.py runs it (400 ticks, the shove at tick 150,
+   replan_ticks 20) with phase 6's planner (512 samples x 8 steps through
+   the level kernel) on a worker thread and a CUDA stream of its own;
+   gated on >= 3 launches and commits, every age after the first commit
+   > 0, max age >= 20, every committed plan's solver_fail_frac 0, no
+   failed tick, upright; 16 level launches and 1 NS launch a plan, 2 NS
+   launches a tick; the tick's p50 / p99 with a plan in flight and
+   without, the commit latencies;
+14. the entry points: run.main on configs 1 to 4 for 20 ticks and on
+   config 5 with one 512 x 8 plan, each JSON line's keys, finite numbers,
+   the card's name and (floating bases) the final base z within 0.05 m of
+   the standing height; then runtime/native.py's NativeExecutor driving
+   the quadruped's tick for 100 ticks at a 100 ms period, its torques
+   traced through the native ring; the executor's deadline stats.
+
+Phases 2 to 4 run alone, so their device times are the kernels' own. Then
+phases 9 and 11, the two longest host-bound loops, run in processes of
+their own (``python3 chip_smoke.py --phase capture`` / ``--phase qppvm``,
+which run that phase alone) beside phases 5 to 14 in this one; each phase
+sets and reads the launch counts of its own process, and its output is
+printed when it ends.
 
 Prints the card's name and power limit, a JSON line describing the kernels,
 then, as the last line, {"ok": true, "device": {...}}. Exits non-zero
@@ -273,6 +308,57 @@ QPPVM_TICKS, QPPVM_SETTLE, QPPVM_MAX_FAILS = 1500, 500, 15
 QPPVM_ERR_MEAN, QPPVM_ERR_MAX, TAU_LIMIT_TOL = 0.05, 0.12, 1e-4
 ARM7_TICKS, ARM7_Q_TOL, ARM7_QD_TOL = 500, 0.05, 0.5
 QPPVM_SIM_TICKS, QPPVM_COMPARE = 200, 5
+# phases run in processes of their own, beside phases 5 to 14 in this one,
+# once phases 2 to 4 (the kernels' device times) are done: the two longest
+# host-bound loops; each ends by printing RESULT_TAG and its result
+SIDE_PHASES = ("capture", "qppvm")
+RESULT_TAG = "chip_smoke phase result: "
+# phase 12: tests/test_gait_walk.py's quadruped (friction cones at mu 0.5,
+# switchable contacts, position-only feet tasks, iters 60) in the level
+# kernel's profile (rho_updates 0: the JAX package's first stride is as
+# healthy there as in the default profile, on a CPU), SimRobot at dt 1 ms
+# in 2 substeps, closed on FloatingBaseEstimator; the walk's first stride
+# (n_strides 1: WALK_PHASES, 1,750 ticks) and the settled tail. Gates: the
+# swing foot advanced >= 75% of the 6 cm stride, each stance foot within
+# 2 cm of where it stood, upright, base z within 0.08 m, every foot's fz
+# >= 10 N within 1e-3 on the last tick, the estimate within 2 cm of the
+# plant's base position on every tick
+WALK_PLUGIN = dict(contact_links=FEET, waist_link="pelvis", iters=60,
+                   switchable_contacts=True, use_friction_cones=True, mu=0.5,
+                   foot_tasks_6d=False)
+WALK_PROFILE = dict(rho_updates=0)
+WALK_PHASES = dict(settle=100, shift=600, dwell=100, unload=150, lift=250,
+                   hold=0, lower=300, reload=250)
+WALK_GAIT = dict(order=("foot_hl", "foot_fl", "foot_hr", "foot_fr"),
+                 stride=(0.06, 0.0), n_strides=1, shift_mode="edge",
+                 touch_depth=0.012)
+WALK_TAIL, WALK_SUBSTEPS = 300, 2
+WALK_SWING, WALK_SWING_SHARE, WALK_STANCE_MAX = "foot_hl", 0.75, 0.02
+WALK_UP, WALK_DZ, WALK_EST_ERR = 0.98, 0.08, 0.02
+# the JAX package's first stride, run on a CPU (recorded in CHANGES.md)
+WALK_JAX = ("foot_hl +0.05899 m, stance feet moved <= 0.0089 m, up 0.99937, "
+            "dz -0.00266 m, last fz [97.4, 176.0, 126.1, 51.7] N, 0 failures")
+# phase 13: tests/test_async_mpc.py's pipeline on the humanoid (iters 40,
+# SimRobot at dt 1 ms in 2 substeps, the shove base_vel[4] += 0.2 at tick
+# 150, a re-plan every 20 ticks) with phase 6's planner
+# (mpc/humanoid_plan.py: 512 samples x horizon 8, 30 N pushes, rollout
+# steps of 10 ms at qp_iters 12 with 8 warm NS iterations, its levels
+# through the level kernel), consumed 10 ticks a step
+ASYNC_PLUGIN = dict(contact_links=CONTACTS, waist_link="pelvis", iters=40)
+ASYNC_MPPI = dict(n_samples=512, horizon=8, push_std=30.0)
+ASYNC_ROLLOUT = dict(horizon=8, qp_iters=12, qp_warm_kinv_iters=8,
+                     qp_backend="kernel")
+ASYNC_TICKS, ASYNC_SHOVE, ASYNC_REPLAN, ASYNC_TICKS_PER_STEP = 400, 150, 20, 10
+# phase 14: run.main on the shipped configurations, and the native paced
+# executor driving the quadruped's tick (tests/test_native_runtime.py's
+# loop: the default stack, iters 40, 2 substeps) with its trace through the
+# native ring
+RUN_CONFIGS = ("config1_arm7", "config2_dual_arm", "config3_biped",
+               "config4_humanoid")
+RUN_SECONDS, RUN_Z_TOL = "0.02", 0.05
+RUN_MPC = ("config5_mpc", ["--samples", "512", "--horizon", "8",
+                           "--mpc-steps", "1"])
+EXEC_TICKS, EXEC_PERIOD_S, EXEC_Z_TOL = 100, 0.1, 0.05
 
 
 def fail(msg):
@@ -1517,6 +1603,381 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
              "qppvm_arm7_loop_b1": arm_ns})
 
 
+def walk_setup(torch, dev, zoo, backend, start=None):
+    """The walk's quadruped, plant, estimator and one-stride gait; the
+    plugin's level solver ``backend``; references and warm state from
+    ``start`` or the plugin's on_start."""
+    from types import SimpleNamespace
+
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+    from qppvm_tpu_torch.runtime import robot_interface as ri
+    from qppvm_tpu_torch.runtime.contact_switch import LegLiftPhases
+    from qppvm_tpu_torch.runtime.estimator import FloatingBaseEstimator
+    from qppvm_tpu_torch.runtime.gait import GaitScript
+
+    model = zoo.quadruped(device=dev)
+    plugin = ForceAccPlugin(model, **WALK_PLUGIN,
+                            solver_opts=dict(WALK_PROFILE, backend=backend))
+    robot = ri.SimRobot(model, state=ri.standing_state(model, FEET),
+                        dt=1e-3, substeps=WALK_SUBSTEPS, contact_links=FEET,
+                        ground_z=0.0)
+    start = start or plugin.on_start(robot.state)
+    refs, warm, waist = start
+    est = FloatingBaseEstimator(model, FEET)
+    gait = GaitScript(model, plugin, refs, waist, tail=WALK_TAIL,
+                      phases=LegLiftPhases(**WALK_PHASES), **WALK_GAIT)
+    return SimpleNamespace(plugin=plugin, robot=robot, est=est, gait=gait,
+                           es=est.init(robot.state), warm=warm, start=start)
+
+
+def drive_walk(torch, w, ticks, record=0, stages=None):
+    """``ticks`` ticks of the walk closed on the estimator: estimator (the
+    gates of the previous tick's references) -> refs_at -> tick -> plant.
+    With ``stages`` (a dict of lists) each stage is timed to a synchronize.
+    Returns the last aux, the failures, the largest estimate error and the
+    first ``record`` torques, keeping the gates' quantities on the
+    device."""
+    robot, est, gait, plugin = w.robot, w.est, w.gait, w.plugin
+    dev = robot.state.q.device
+    gates = torch.ones((1, len(FEET)), device=dev)
+    n_fail = torch.zeros((), dtype=torch.int64, device=dev)
+    err_max = torch.zeros((), device=dev)
+    es, warm, taus, aux = w.es, w.warm, [], None
+
+    def mark(name, t):
+        if stages is not None:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stages[name].append((now - t[0]) * 1e3)
+            t[0] = now
+
+    for i in range(ticks):
+        t = [time.perf_counter()]
+        truth = robot.state
+        imu = robot.get_imu()
+        state, es = est.update(es, robot.get_motor_position(),
+                               robot.get_motor_velocity(), imu.orientation,
+                               imu.angular_velocity, active=gates)
+        mark("estimator", t)
+        refs = gait.refs_at(i, state)
+        gates = refs["contacts"]["active"]
+        mark("refs_at", t)
+        tau, warm, aux = plugin.control_loop(state, refs, warm)
+        mark("control", t)
+        robot.set_reference(tau_ref=tau, q_ref=state.q)
+        robot.move()
+        mark("plant", t)
+        n_fail = n_fail + aux.solver_failed.sum()
+        err_max = torch.maximum(err_max, torch.linalg.norm(
+            state.base_pos - truth.base_pos))
+        if i < record:
+            taus.append(tau)
+    return aux, int(n_fail), float(err_max), taus
+
+
+def phase_walk(torch, dev, card, hierarchy, level_qp, nsi, zoo):
+    """Phase 12: the quadruped's first walk stride closed on the leg-odometry
+    estimator, through the level kernel (2 launches a tick) and the NS
+    kernel (one launch a plant substep); the first LOOP_COMPARE torques
+    held to the same loop through the plain level solver; the tick's
+    stages timed."""
+    from qppvm_tpu_torch.model import kinematics
+
+    w = walk_setup(torch, dev, zoo, "kernel")
+    model, robot = w.plugin.model, w.robot
+    ticks = w.gait.total
+    p0 = kinematics.fk(model, robot.state).p[0]
+    z0 = float(robot.state.base_pos[0, 2])
+    stages = {k: [] for k in ("estimator", "refs_at", "control", "plant")}
+    level_qp.launches = 0
+    hierarchy.fallbacks = 0
+    nsi.launches = 0
+    t0 = time.perf_counter()
+    aux, n_fail, err_max, taus = drive_walk(torch, w, ticks,
+                                            record=LOOP_COMPARE,
+                                            stages=stages)
+    run_s = time.perf_counter() - t0
+    launches, fallbacks, ns_launches = (level_qp.launches,
+                                        hierarchy.fallbacks, nsi.launches)
+    p1 = kinematics.fk(model, robot.state).p[0]
+    moved = {c: (p1[model.link_index(c)] - p0[model.link_index(c)])
+             for c in FEET}
+    swing_dx = float(moved[WALK_SWING][0])
+    stance = max(float(torch.linalg.norm(d)) for c, d in moved.items()
+                 if c != WALK_SWING)
+    up = float(robot.state.base_rot[0, 2, 2])
+    dz = float(robot.state.base_pos[0, 2]) - z0
+    fz = aux.wrenches[0, :, 2].tolist()
+    print(f"walk stride (quadruped, cones mu 0.5, switchable contacts, "
+          f"closed on the estimator): {ticks} ticks in {run_s:.1f} s, "
+          f"{n_fail} solver failures, {launches} level launches, "
+          f"{fallbacks} fallbacks, {ns_launches} NS launches; {WALK_SWING} "
+          f"{swing_dx:+.5f} m, stance feet moved <= {stance:.4f} m, up "
+          f"{up:.5f}, dz {dz:+.5f} m, last fz {[round(f, 1) for f in fz]} "
+          f"N, estimate error <= {err_max:.5f} m")
+    print(f"walk stride, the JAX package's first stride on a CPU: "
+          f"{WALK_JAX}")
+    if (launches, fallbacks) != (2 * ticks, 0):
+        fail(f"walk stride: {launches} level launches, {fallbacks} "
+             f"fallbacks; expected {2 * ticks} and 0")
+    if ns_launches != WALK_SUBSTEPS * ticks:
+        fail(f"walk stride: {ns_launches} NS launches, expected "
+             f"{WALK_SUBSTEPS * ticks}")
+    if n_fail:
+        fail(f"walk stride: {n_fail} solver failures")
+    if not swing_dx >= WALK_SWING_SHARE * WALK_GAIT["stride"][0]:
+        fail(f"walk stride: {WALK_SWING} advanced {swing_dx:.4f} m")
+    if not stance < WALK_STANCE_MAX:
+        fail(f"walk stride: a stance foot moved {stance:.4f} m")
+    if not (up > WALK_UP and abs(dz) < WALK_DZ):
+        fail(f"walk stride: up {up:.4f}, dz {dz:.4f} m")
+    if not min(fz) >= FZ_MIN - 1e-3:
+        fail(f"walk stride: last tick's fz {fz}")
+    if not err_max < WALK_EST_ERR:
+        fail(f"walk stride: estimate error {err_max:.4f} m")
+
+    plain = walk_setup(torch, dev, zoo, "torch", start=w.start)
+    *_, taus_ref = drive_walk(torch, plain, LOOP_COMPARE,
+                              record=LOOP_COMPARE)
+    tau_err = compare_taus(torch, taus, taus_ref, "walk stride")
+    print(f"walk stride: first {LOOP_COMPARE} taus within {tau_err:.3g} Nm "
+          f"of the plain level solver's loop")
+    parts = "; ".join(f"{k} {statistics.median(v):.3f} / "
+                      f"{statistics.fmean(v):.3f}"
+                      for k, v in stages.items())
+    total = [sum(v) for v in zip(*stages.values())]
+    print(f"[{card}] walk stride B=1 (level kernel, rho_updates 0): tick "
+          f"median {statistics.median(total):.3f} ms, mean "
+          f"{statistics.fmean(total):.3f} ms, p99 "
+          f"{float(np.percentile(total, 99)):.3f} ms; stages median / mean "
+          f"ms: {parts}")
+    return launches, ns_launches
+
+
+def phase_async(torch, dev, card, hierarchy, level_qp, nsi, zoo):
+    """Phase 13: the async plan/act pipeline on the humanoid: the planner
+    on a worker thread and a CUDA stream of its own, the tick acting on
+    the committed plan, time-shifted; gated as tests/test_async_mpc.py.
+    The tick's host times with a plan in flight and without one."""
+    from qppvm_tpu_torch.mpc.rollout import RolloutConfig, standing_state
+    from qppvm_tpu_torch.mpc.sampling import MPPIConfig, SamplingMPC
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+    from qppvm_tpu_torch.runtime.async_mpc import AsyncPlanner
+    from qppvm_tpu_torch.runtime.robot_interface import SimRobot
+
+    model = zoo.humanoid(device=dev)
+    plugin = ForceAccPlugin(model, **ASYNC_PLUGIN)
+    st0 = standing_state(model, CONTACTS)
+    robot = SimRobot(model, state=st0, dt=1e-3, substeps=2,
+                     contact_links=CONTACTS)
+    refs, warm, waist_p = plugin.on_start(robot.state)
+    mpc = SamplingMPC(plugin, MPPIConfig(**ASYNC_MPPI),
+                      RolloutConfig(**ASYNC_ROLLOUT))
+    planner = AsyncPlanner(mpc, replan_ticks=ASYNC_REPLAN,
+                           ticks_per_step=ASYNC_TICKS_PER_STEP)
+    stream = torch.cuda.current_stream()
+    level_qp.launches = 0
+    hierarchy.fallbacks = 0
+    nsi.launches = 0
+    ages, tick_ms, in_flight, rt_fails = [], [], [], 0
+    t0 = time.perf_counter()
+    for i in range(ASYNC_TICKS):
+        t = time.perf_counter()
+        state = robot.state
+        u, age = planner.tick(i, state, refs, warm)
+        ages.append(age)
+        waist_p = waist_p + u * 1e-3
+        refs_t = dict(refs, waist_task=dict(refs["waist_task"], p=waist_p))
+        tau, warm, aux = plugin.control_loop(state, refs_t, warm)
+        rt_fails += bool(aux.solver_failed.any())   # waits on this stream
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+        in_flight.append(planner._pending is not None)
+        robot.set_reference(tau_ref=tau, q_ref=state.q)
+        robot.move()
+        if i == ASYNC_SHOVE:
+            bv = robot.state.base_vel.clone()
+            bv[:, 4] += 0.2
+            robot.state = dataclasses.replace(robot.state, base_vel=bv)
+    stream.synchronize()
+    run_s = time.perf_counter() - t0
+    planner.close()
+    torch.cuda.synchronize()
+    launches, fallbacks, ns_launches = (level_qp.launches,
+                                        hierarchy.fallbacks, nsi.launches)
+    fails = [float(info["solver_fail_frac"]) for info in planner.infos]
+    up = float(robot.state.base_rot[0, 2, 2])
+    z, z0 = float(robot.state.base_pos[0, 2]), float(st0.base_pos[0, 2])
+    first = next((k for k, a in enumerate(ages) if a >= 0), None)
+    busy = [m for m, f in zip(tick_ms, in_flight) if f]
+    idle = [m for m, f in zip(tick_ms, in_flight) if not f]
+    pct = lambda v, q: float(np.percentile(v, q)) if v else float("nan")  # noqa
+    print(f"async pipeline (humanoid, {ASYNC_TICKS} ticks in {run_s:.1f} "
+          f"s, planner {ASYNC_MPPI['n_samples']} x {ASYNC_MPPI['horizon']} "
+          f"on its own stream): {planner.n_launch} launches, "
+          f"{planner.n_commit} commits, commit latencies "
+          f"{planner.commit_latency_ticks} ticks, max age {max(ages)}, "
+          f"{rt_fails} failed ticks, plans' solver_fail_frac {fails}; "
+          f"{launches} level launches ({launches / planner.n_launch:.1f} a "
+          f"plan), {fallbacks} fallbacks, {ns_launches} NS launches; up "
+          f"{up:.4f}, base z {z0:.4f} -> {z:.4f} m")
+    print(f"[{card}] async pipeline tick B=1 (planner.tick + control, to a "
+          f"synchronize of the tick's stream): with a plan in flight "
+          f"{len(busy)} ticks, p50 {pct(busy, 50):.3f} ms, p99 "
+          f"{pct(busy, 99):.3f} ms; without {len(idle)} ticks, p50 "
+          f"{pct(idle, 50):.3f} ms, p99 {pct(idle, 99):.3f} ms")
+    if planner.n_launch < 3 or planner.n_commit < 3 or first is None:
+        fail(f"async pipeline: {planner.n_launch} launches, "
+             f"{planner.n_commit} commits")
+    if not all(a > 0 for a in ages[first + 1:]):
+        fail("async pipeline: a plan was consumed at age 0 after the first "
+             "commit")
+    if max(ages) < ASYNC_REPLAN:
+        fail(f"async pipeline: max age {max(ages)} < {ASYNC_REPLAN}")
+    if any(f != 0.0 for f in fails) or rt_fails:
+        fail(f"async pipeline: plans' fail fractions {fails}, {rt_fails} "
+             f"failed ticks")
+    if not (up > 0.95 and z > z0 - 0.08):
+        fail(f"async pipeline: up {up:.4f}, base z {z:.4f} m")
+    if (launches, fallbacks) != (
+            2 * ASYNC_MPPI["horizon"] * planner.n_launch, 0):
+        fail(f"async pipeline: {launches} level launches, {fallbacks} "
+             f"fallbacks for {planner.n_launch} plans")
+    if ns_launches != 2 * ASYNC_TICKS + planner.n_launch:
+        fail(f"async pipeline: {ns_launches} NS launches, expected "
+             f"{2 * ASYNC_TICKS + planner.n_launch}")
+    return launches, ns_launches
+
+
+def phase_entry(torch, dev, card, hierarchy, level_qp, nsi, zoo):
+    """Phase 14: run.main on configs 1 to 4 for RUN_SECONDS and on config 5
+    (one plan at 512 x 8), each JSON line checked; then the native paced
+    executor driving the quadruped's tick, traced through the native
+    ring."""
+    import math
+
+    from qppvm_tpu_torch import config, run
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+    from qppvm_tpu_torch.runtime import native
+    from qppvm_tpu_torch.runtime import robot_interface as ri
+
+    name = torch.cuda.get_device_name(dev)
+    loop_keys = {"scenario", "seconds", "p50_ms", "p99_ms", "deadline_misses",
+                 "final_q_norm", "device"}
+    ns_by, level_by = {}, {}
+    for cname, args in [(c, ["--seconds", RUN_SECONDS]) for c in RUN_CONFIGS] \
+            + [RUN_MPC]:
+        path = str(ROOT / "configs" / f"{cname}.yaml")
+        cfg = config.load_scenario(path)
+        nsi.launches = 0
+        level_qp.launches = 0
+        hierarchy.fallbacks = 0
+        t0 = time.perf_counter()
+        out = run.main(["--config", path, *args])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        ns_by[cname], level_by[cname] = nsi.launches, level_qp.launches
+        keys = ({"scenario", "mpc_steps", "n_samples", "horizon", "devices",
+                 "plan_norm", "device"} if cfg.mpc.enabled else
+                loop_keys | ({"final_base_z"} if cfg.plugin.contact_links
+                             else set()))
+        nums = [v for k, v in out.items() if k not in ("scenario", "device")]
+        if set(out) != keys or out["device"] != name or not all(
+                math.isfinite(v) for v in nums):
+            fail(f"run {cname}: {out}")
+        if "final_base_z" in out:
+            model = config.build_model(cfg, dev)
+            z_stand = float(config.build_sim(cfg, model).state.base_pos[0, 2])
+            if not abs(out["final_base_z"] - z_stand) < RUN_Z_TOL:
+                fail(f"run {cname}: final base z {out['final_base_z']} "
+                     f"against the standing {z_stand:.4f} m")
+        if cfg.mpc.enabled:
+            horizon = int(args[args.index("--horizon") + 1])
+            if (level_qp.launches, hierarchy.fallbacks, out["devices"]) != (
+                    2 * horizon, 0, 1) or nsi.launches != 1:
+                fail(f"run {cname}: {level_qp.launches} level launches, "
+                     f"{hierarchy.fallbacks} fallbacks, {nsi.launches} NS")
+        elif nsi.launches < int(round(float(RUN_SECONDS) * 1e3)):
+            fail(f"run {cname}: {nsi.launches} NS launches")
+        print(f"[{card}] run {cname} {' '.join(args)}: {json.dumps(out)} "
+              f"({run_s:.1f} s with set-up; {ns_by[cname]} NS launches, "
+              f"{level_by[cname]} level launches)")
+
+    model = zoo.quadruped(device=dev)
+    plugin = ForceAccPlugin(model, iters=40)
+    robot = ri.SimRobot(model, state=ri.standing_state(model, FEET),
+                        dt=1e-3, substeps=2, contact_links=FEET)
+    z0 = float(robot.state.base_pos[0, 2])
+    refs, warm0, _ = plugin.on_start(robot.state)
+    plugin.control_loop(robot.state, refs, warm0)
+    torch.cuda.synchronize()
+    ring = native.NativeTraceRing()
+    box = {"warm": warm0, "fails": 0, "ticks": 0}
+
+    def tick(i, t_s):
+        tau, box["warm"], aux = plugin.control_loop(robot.state, refs,
+                                                    box["warm"])
+        box["fails"] += bool(aux.solver_failed.any())
+        robot.set_reference(tau_ref=tau, q_ref=robot.state.q)
+        robot.move()
+        ring.push(0, tau)
+        box["ticks"] += 1
+        return True
+
+    nsi.launches = 0
+    ex = native.NativeExecutor(period_s=EXEC_PERIOD_S)
+    done = ex.run(tick, EXEC_TICKS)
+    stats = ex.stats()
+    exec_ns = nsi.launches
+    n_pop = 0
+    while ring.pop() is not None:
+        n_pop += 1
+    dz = float(robot.state.base_pos[0, 2]) - z0
+    print(f"[{card}] native executor, quadruped tick (iters 40) at a "
+          f"{EXEC_PERIOD_S * 1e3:.0f} ms period: {done} ticks, "
+          f"{box['fails']} failed, p50 {stats['p50_s'] * 1e3:.3f} ms, p99 "
+          f"{stats['p99_s'] * 1e3:.3f} ms, mean {stats['mean_s'] * 1e3:.3f} "
+          f"ms, deadline misses {stats['deadline_misses']}; {n_pop} trace "
+          f"records popped, {ring.dropped} dropped; {exec_ns} NS launches; "
+          f"dz {dz:+.5f} m")
+    if (done, box["ticks"], box["fails"], n_pop) != (EXEC_TICKS, EXEC_TICKS,
+                                                     0, EXEC_TICKS):
+        fail(f"native executor: {done} ticks, {box['fails']} failed, "
+             f"{n_pop} records")
+    if exec_ns != 2 * EXEC_TICKS or not abs(dz) < EXEC_Z_TOL:
+        fail(f"native executor: {exec_ns} NS launches, dz {dz:.4f} m")
+    return ({"run_config5_plan_b512": level_by[RUN_MPC[0]]},
+            {**{f"run_{c}": ns_by[c] for c in ns_by},
+             "native_executor_b1": exec_ns})
+
+
+def start_side_phase(name):
+    """Start phase ``name`` in a process of its own (``--phase name``),
+    its output to a temporary file; returns (process, file)."""
+    import subprocess
+    import tempfile
+
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--phase", name], stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def collect_side_phase(name, proc, out):
+    """Wait for a side phase, print its output and return its result;
+    fails when the process failed."""
+    rc = proc.wait()
+    out.seek(0)
+    lines = out.read().splitlines()
+    out.close()
+    results = [ln[len(RESULT_TAG):] for ln in lines
+               if ln.startswith(RESULT_TAG)]
+    print("\n".join(ln for ln in lines if not ln.startswith(RESULT_TAG)))
+    if rc != 0 or len(results) != 1:
+        fail(f"phase {name}: its process exited {rc}")
+    return json.loads(results[0])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1528,9 +1989,28 @@ def main():
     from qppvm_tpu_torch.opt import level_qp_parity as parity
 
     dev = torch.device("cuda", 0)
+    card = card_line()
+    args = (torch, dev, card, hierarchy, level_qp, ns_inverse)
+    # phases 5 to 14, each with its result's name
+    phases = {
+        "loop": lambda: phase_closed_loop(*args),
+        "mpc": lambda: phase_mpc(*args),
+        "centaur": lambda: phase_centaur_tick(*args, zoo),
+        "quad": lambda: phase_quadruped_loop(*args, zoo),
+        "capture": lambda: phase_capture(*args),
+        "step": lambda: phase_step_recovery(*args, zoo),
+        "qppvm": lambda: phase_qppvm(*args, zoo),
+        "walk": lambda: phase_walk(*args, zoo),
+        "async": lambda: phase_async(*args, zoo),
+        "entry": lambda: phase_entry(*args, zoo)}
+    if sys.argv[1:2] == ["--phase"]:    # one phase in a process of its own
+        for m in (level_qp, ns_inverse):   # loaded, or built, before timing
+            m.library()
+        result = phases[sys.argv[2]]()
+        print(RESULT_TAG + json.dumps(result))
+        return
     print("torch", torch.__version__, "cuda", torch.version.cuda,
           "python", sys.version.split()[0])
-    card = card_line()
 
     # ---- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1545,22 +2025,28 @@ def main():
             print(log.read_text().strip())
     print(card)
 
+    t0 = time.perf_counter()
     run = phase_levels(torch, dev, card, parity, level_qp)
     run.update(phase_main_path(torch, dev, card, hierarchy, level_qp, zoo))
     run["ns_row"] = phase_ns_inverse(torch, dev, card)
-    run["loop"] = phase_closed_loop(torch, dev, card, hierarchy, level_qp,
-                                    ns_inverse)
-    run["mpc"] = phase_mpc(torch, dev, card, hierarchy, level_qp, ns_inverse)
-    run["centaur"] = phase_centaur_tick(torch, dev, card, hierarchy,
-                                        level_qp, ns_inverse, zoo)
-    run["quad"] = phase_quadruped_loop(torch, dev, card, hierarchy, level_qp,
-                                       ns_inverse, zoo)
-    run["capture"] = phase_capture(torch, dev, card, hierarchy, level_qp,
-                                   ns_inverse)
-    run["step"] = phase_step_recovery(torch, dev, card, hierarchy, level_qp,
-                                      ns_inverse, zoo)
-    run["qppvm"] = phase_qppvm(torch, dev, card, hierarchy, level_qp,
-                               ns_inverse, zoo)
+    print(f"phases 2 to 4 took {time.perf_counter() - t0:.1f} s")
+    # the kernels' timing phases ran alone; the closed loops and plans,
+    # host-bound, now share the card: the longest run in processes of
+    # their own beside this one's
+    side = {name: start_side_phase(name) for name in SIDE_PHASES}
+    try:
+        for name, phase in phases.items():
+            if name not in side:
+                t0 = time.perf_counter()
+                run[name] = phase()
+                print(f"phase {name} took {time.perf_counter() - t0:.1f} s")
+        for name in list(side):
+            run[name] = collect_side_phase(name, *side.pop(name))
+    finally:
+        for proc, out in side.values():
+            proc.kill()
+            proc.wait()
+            out.close()
     print(card)
     print_kernels_line(torch, run)
 
@@ -1669,6 +2155,9 @@ def print_kernels_line(torch, run):
     capture_levels, capture_ns = run["capture"]
     step_launches, step_ns = run["step"]
     qppvm_levels, qppvm_ns = run["qppvm"]
+    walk_levels, walk_ns = run["walk"]
+    async_levels, async_ns = run["async"]
+    entry_levels, entry_ns = run["entry"]
     ns_row = run["ns_row"]
     ns_row["launches_by_path"] = {"ns_path": ns_row["launches"],
                                   "closed_loop_b1": loop_ns,
@@ -1677,7 +2166,10 @@ def print_kernels_line(torch, run):
                                   "quadruped_loop_b1": quad_ns,
                                   **capture_ns,
                                   "mppi_step_recovery_b512": step_ns,
-                                  **qppvm_ns}
+                                  **qppvm_ns,
+                                  "walk_stride_b1": walk_ns,
+                                  "async_loop_b1_and_plans": async_ns,
+                                  **entry_ns}
 
     b_ms, b_by = bound_ms(sum(f for f, _ in level_bound),
                           sum(b for _, b in level_bound))
@@ -1701,7 +2193,10 @@ def print_kernels_line(torch, run):
                              "quadruped_loop_b1": quad_launches,
                              **capture_levels,
                              "mppi_step_recovery_b512": step_launches,
-                             **qppvm_levels}},
+                             **qppvm_levels,
+                             "walk_stride_b1": walk_levels,
+                             "async_plans_b512": async_levels,
+                             **entry_levels}},
         ns_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

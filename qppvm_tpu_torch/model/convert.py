@@ -24,6 +24,7 @@ MODEL_META = ("parent", "joint_type", "joint_names", "link_names",
               "root_name", "floating", "frames")
 STATE_FIELDS = ("q", "qd", "base_rot", "base_pos", "base_vel")
 QPSTATE_FIELDS = ("x", "z", "y", "Kinv", "rho_scale")
+ESTIMATOR_FIELDS = ("base_pos", "anchors", "active_prev")
 
 
 def robot_model(arrays: Mapping[str, np.ndarray], meta: Mapping[str, Any],
@@ -66,3 +67,14 @@ def qp_states(levels: Sequence[Mapping[str, np.ndarray]],
                                                device=device)
                             for k in QPSTATE_FIELDS})
                  for lv in levels)
+
+
+def estimator_state(arrays: Mapping[str, np.ndarray],
+                    device=devices.DEFAULT, dtype=torch.float32):
+    """The leg-odometry EstimatorState from the reference's unbatched
+    arrays (``ESTIMATOR_FIELDS``), as batch 1."""
+    from qppvm_tpu_torch.runtime.estimator import EstimatorState
+    device = devices.resolve(device)
+    return EstimatorState(**{k: torch.tensor(np.asarray(arrays[k])[None],
+                                             dtype=dtype, device=device)
+                             for k in ESTIMATOR_FIELDS})

@@ -49,6 +49,11 @@ to the plain NS, counted), one batched tick of the centaur with friction
 cones, and one rollout of the quadruped with switchable cones, a swing
 decision per sample and a gate_seq (K 37, H 2), level kernel against plain
 level solver.
+
+The deployment runtime on the card: the leg-odometry estimator against
+the same updates on the CPU, one AsyncPlanner plan on its side stream
+against a synchronous plan from the same seed, and ``run.main`` on
+config 1.
 """
 import pytest
 import torch
@@ -402,3 +407,88 @@ def test_swing_gate_rollout_kernel_matches_plain(device):
     assert torch.equal(health["solver_failed"], health_ref["solver_failed"])
     assert bool(((cost - cost_ref).abs()
                  <= 1e-3 + 1e-3 * cost_ref.abs()).all())
+
+
+def test_estimator_update_on_card_matches_cpu(device):
+    """The leg-odometry estimator's init and updates (a break, a make, no
+    active contact) on the card against the same on the CPU: base
+    position, anchors and base twist within 1e-5 + 1e-5 relative."""
+    import dataclasses
+
+    from qppvm_tpu_torch.model import zoo
+    from qppvm_tpu_torch.runtime.estimator import FloatingBaseEstimator
+    from qppvm_tpu_torch.runtime.robot_interface import standing_state
+
+    feet = ("foot_fl", "foot_fr", "foot_hr", "foot_hl")
+    gates = [[1, 1, 1, 1], [0, 1, 1, 1], [1, 1, 1, 1], [0, 0, 0, 0],
+             [1, 0, 1, 1]]
+    g = torch.Generator().manual_seed(3)
+    runs = {}
+    for dev in ("cpu", device):
+        model = zoo.quadruped(device=dev)
+        est = FloatingBaseEstimator(model, feet)
+        st = standing_state(model, feet)
+        es = est.init(st)
+        g.manual_seed(3)
+        outs = []
+        for gate in gates:
+            s = dataclasses.replace(
+                st, q=st.q + 0.05 * torch.randn(st.q.shape, generator=g).to(dev),
+                qd=torch.randn(st.qd.shape, generator=g).to(dev))
+            out, es = est.update(es, s.q, s.qd, s.base_rot,
+                                 torch.randn(1, 3, generator=g).to(dev),
+                                 torch.tensor([gate], dtype=torch.float32))
+            outs.append((out.base_pos, out.base_vel, es.anchors))
+        runs[str(dev)] = outs
+    for got, ref in zip(runs[str(device)], runs["cpu"]):
+        for a, r in zip(got, ref):
+            assert torch.allclose(a.cpu(), r, rtol=1e-5, atol=1e-5)
+
+
+def test_async_plan_on_side_stream_matches_sync_plan(device):
+    """One AsyncPlanner plan, launched on the worker's stream and flushed,
+    against a synchronous plan from the same seed and inputs: the same
+    plan U (float32 sums in the same order: within 1e-6 + 1e-5 rel)."""
+    from qppvm_tpu_torch.model import zoo
+    from qppvm_tpu_torch.mpc.rollout import RolloutConfig, standing_state
+    from qppvm_tpu_torch.mpc.sampling import MPPIConfig, SamplingMPC
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+    from qppvm_tpu_torch.runtime.async_mpc import AsyncPlanner
+
+    soles = ("l_sole", "r_sole")
+    model = zoo.humanoid(device=device)
+    plugin = ForceAccPlugin(model, contact_links=soles, iters=40)
+    st = standing_state(model, soles)
+    refs, warm, _ = plugin.on_start(st)
+    mpc = SamplingMPC(plugin, MPPIConfig(n_samples=64, horizon=4,
+                                         noise_std=0.2, push_std=20.0),
+                      RolloutConfig(horizon=4, qp_iters=15, dt=0.02,
+                                    qp_backend="kernel"))
+    planner = AsyncPlanner(mpc, replan_ticks=20, ticks_per_step=20,
+                           generator=torch.Generator(
+                               device=device).manual_seed(7))
+    u, age = planner.tick(0, st, refs, warm)
+    assert age == -1 and planner.n_launch == 1
+    planner.close()
+    U_async, info = planner._committed[0], planner.infos[0]
+    U_sync, _ = mpc.plan(torch.Generator(device=device).manual_seed(7), st,
+                         refs, warm, mpc.init_plan())
+    assert float(info["solver_fail_frac"]) == 0.0
+    assert torch.allclose(U_async, U_sync, rtol=1e-5, atol=1e-6)
+
+
+def test_run_config1_on_card(device):
+    """run.main on config 1 for 5 ticks on the card: the reference's keys
+    with the card's name, finite numbers."""
+    import math
+    from pathlib import Path
+
+    from qppvm_tpu_torch import run
+
+    path = Path(__file__).resolve().parents[1] / "configs" / "config1_arm7.yaml"
+    out = run.main(["--config", str(path), "--seconds", "0.005"])
+    assert set(out) == {"scenario", "seconds", "p50_ms", "p99_ms",
+                        "deadline_misses", "final_q_norm", "device"}
+    assert out["device"] == torch.cuda.get_device_name(device)
+    assert all(math.isfinite(v) for k, v in out.items()
+               if k not in ("scenario", "device"))
