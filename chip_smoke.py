@@ -41,7 +41,9 @@ Phases, each fatal on failure:
    the wrapper's host time), the plain version and torch.linalg.inv, and
    print both bounds (float32 on the CUDA cores, 3xTF32 on the tensor
    cores), the kernel's share of the lesser and its ratio to
-   torch.linalg.inv at each shape;
+   torch.linalg.inv at each shape; also phase 15's planner's two shapes,
+   the first Q_uu (n 12, 22 iterations) and the SRBD inertia (n 3, 16)
+   that a quadruped plan hands to the kernel, recorded as it runs;
 5. the closed loop (runtime/rt_loop.py): 500 ticks of the humanoid's RT
    tick against the contact plant, gated on zero solver failures and a
    stand within 0.08 m; ms per tick, sim-only ms per tick and their
@@ -141,12 +143,32 @@ Phases, each fatal on failure:
    the card's name and (floating bases) the final base z within 0.05 m of
    the standing height; then runtime/native.py's NativeExecutor driving
    the quadruped's tick for 100 ticks at a 100 ms period, its torques
-   traced through the native ring; the executor's deadline stats.
+   traced through the native ring; the executor's deadline stats;
+15. the centroidal DDP planner (mpc/ddp_mpc.py): the iLQR on
+   tests/test_ilqr.py's LQR problem in float32 (120 NS launches, cost and
+   gains held to the Riccati solution); one quadruped plan at
+   tests/test_ddp_mpc.py's config (horizon 15, 4 iterations) held to the
+   same plan on the CPU (76 NS launches, 0 plain inverses); the default
+   config (horizon 40, 8 iterations, 361 NS launches a plan) timed on the
+   quadruped and the humanoid; then tests/test_ddp_mpc.py's squat, 600
+   ticks at B 1 with a plan every 20 in the level kernel's profile (2
+   level and 4 NS launches a tick, 76 a plan), gated as the test (no
+   failure, the plan's end within 5 mm of the target, the CoM down more
+   than 8 mm), and tests/test_force_plan_tracking.py's loop with the
+   plan's forces in ForceReg (normal-force tracking error < 0.25); each
+   loop's first 5 torques held to the plain level solver's; ms a tick, the
+   plant alone, ms a plan;
+16. the URDF loader and ModelInterface: the 7-DoF arm of
+   tests/test_mujoco_crosscheck.py (links named arm1_1 ... arm1_7) and
+   tests/test_urdf.py's two-link arm on a floating base, every query on
+   the card against the CPU; run.main on config 1 with the arm's URDF in
+   place of zoo: arm7, 20 ticks.
 
 Phases 2 to 4 run alone, so their device times are the kernels' own. Then
-phases 9 and 11, the two longest host-bound loops, run in processes of
-their own (``python3 chip_smoke.py --phase capture`` / ``--phase qppvm``,
-which run that phase alone) beside phases 5 to 14 in this one; each phase
+phases 9, 11 and 15, the longest host-bound loops, run in processes of
+their own (``python3 chip_smoke.py --phase capture`` / ``--phase qppvm`` /
+``--phase ddp``, which run that phase alone) beside phases 5 to 14 and 16
+in this one; each phase
 sets and reads the launch counts of its own process, and its output is
 printed when it ends.
 
@@ -239,7 +261,7 @@ MPC_DRAWS = 3
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES_S = 67e12, 495e12, 3.35e12
 # bars on the NS kernel's time (ms) at each phase 4 shape, printed and not
 # gated: a slow kernel that is right stays
-NS_BARS_MS = (1.0, 0.107, 0.60, None, None, None, None)
+NS_BARS_MS = (1.0, 0.107, 0.60, None, None, None, None, None, None)
 # phase 9: tests/test_capture_step.py on the humanoid. The plugin (6D
 # wrenches in friction cones at mu 0.6, switchable contacts, iters 40; its
 # level shapes, n 50, are the "capture" ROBOT_SHAPES), the single-support
@@ -311,7 +333,7 @@ QPPVM_SIM_TICKS, QPPVM_COMPARE = 200, 5
 # phases run in processes of their own, beside phases 5 to 14 in this one,
 # once phases 2 to 4 (the kernels' device times) are done: the two longest
 # host-bound loops; each ends by printing RESULT_TAG and its result
-SIDE_PHASES = ("capture", "qppvm")
+SIDE_PHASES = ("capture", "qppvm", "ddp")
 RESULT_TAG = "chip_smoke phase result: "
 # phase 12: tests/test_gait_walk.py's quadruped (friction cones at mu 0.5,
 # switchable contacts, position-only feet tasks, iters 60) in the level
@@ -358,6 +380,119 @@ RUN_CONFIGS = ("config1_arm7", "config2_dual_arm", "config3_biped",
 RUN_SECONDS, RUN_Z_TOL = "0.02", 0.05
 RUN_MPC = ("config5_mpc", ["--samples", "512", "--horizon", "8",
                            "--mpc-steps", "1"])
+# phase 15: the centroidal DDP planner (mpc/ddp_mpc.py) on the quadruped.
+# tests/test_ddp_mpc.py's planner (horizon 15 of 0.02 s, 4 iterations) and
+# its squat: the CoM target 4 cm below the standing CoM, a plan every 20
+# ticks, the planned CoM 5 steps ahead as the waist reference, 600 ticks of
+# the plugin at iters 40 in the level kernel's profile (the JAX package's
+# loop passes the test's gates in that profile on a CPU: 0 failures, dz
+# -0.0124 m, the plan's end 1.8 mm off the target) on SimRobot at dt 1 ms
+# in 4 substeps; then the same with the plan's forces in ForceReg
+# (tests/test_force_plan_tracking.py, weight 5). The planner's default
+# config (horizon 40, 8 iterations) timed on the quadruped and the
+# humanoid; tests/test_ilqr.py's LQR problem on the card
+DDP_TEST = dict(horizon=15, dt=0.02, iterations=4)
+DDP_PROFILE = dict(rho_updates=0)
+DDP_TICKS, DDP_PLAN_EVERY, DDP_DEPTH, DDP_WAIST_K = 600, 20, 0.04, 5
+DDP_FORCE_W, DDP_PLAN_REPS, DDP_SIM_TICKS = 5.0, 3, 100
+# the tests' gates: the plan's end within 5 mm of the target, the CoM
+# down > 8 mm, the commanded normal forces within 25% of the plan's
+DDP_END_TOL, DDP_DZ_MAX, DDP_TRACK_MAX = 0.005, -0.008, 0.25
+# a plan on the card against the same plan on the CPU (float32, plain
+# inverses): each field's gap over (1 + its largest entry); k, the
+# converged feed-forward, is float32 noise (1e-4 of the forces), held on
+# the forces' scale. A wrong inverse or a flipped line-search decision
+# moves U by whole newtons and reg by a factor 10 or more
+DDP_PLAN_BARS = (("U", 1e-3), ("X", 1e-3), ("K", 1e-2), ("cost", 1e-5),
+                 ("reg", 1e-6))
+# tests/test_ilqr.py's LQR problem: the cost within 1e-3 of the Riccati
+# policy's, the final gains within 1e-3 of their scale of the Riccati gains
+# (the final LM regularization moves them by up to 2e-3 of it in float64)
+LQR_COST_RTOL, LQR_GAIN_REL = 1e-3, 1e-3
+# phase 16: the URDF loader and ModelInterface on the card.
+# tests/test_mujoco_crosscheck.py's 7-DoF arm with its links named as
+# zoo.arm7's (config 1's stack: end effector arm1_7, elbow arm1_4), and
+# tests/test_urdf.py's two-link arm loaded with a floating base; every query
+# on the card against the same on the CPU, float32, each output within
+# LOADER_REL of (1 + its largest entry)
+LOADER_REL = 1e-5
+URDF_ARM1 = """<robot name="xarm">
+  <link name="base"/>
+  <link name="arm1_1"><inertial><origin xyz="0.02 -0.01 0.11"/>
+    <mass value="3.1"/><inertia ixx="0.031" iyy="0.027" izz="0.012"
+    ixy="0.002" ixz="-0.001" iyz="0.003"/></inertial></link>
+  <link name="arm1_2"><inertial><origin xyz="-0.01 0.03 0.14"/>
+    <mass value="2.4"/><inertia ixx="0.022" iyy="0.019" izz="0.008"
+    ixy="-0.001" ixz="0.002" iyz="0.001"/></inertial></link>
+  <link name="arm1_3"><inertial><origin xyz="0.015 0.0 0.12"/>
+    <mass value="1.9"/><inertia ixx="0.015" iyy="0.014" izz="0.005"
+    ixy="0.001" ixz="0" iyz="-0.002"/></inertial></link>
+  <link name="arm1_4"><inertial><origin xyz="0 0.02 0.1"/>
+    <mass value="1.4"/><inertia ixx="0.009" iyy="0.008" izz="0.003"
+    ixy="0" ixz="0.001" iyz="0"/></inertial></link>
+  <link name="arm1_5"><inertial><origin xyz="0.01 0 0.08"/>
+    <mass value="0.9"/><inertia ixx="0.004" iyy="0.004" izz="0.002"
+    ixy="0" ixz="0" iyz="0.001"/></inertial></link>
+  <link name="arm1_6"><inertial><origin xyz="0 -0.01 0.06"/>
+    <mass value="0.6"/><inertia ixx="0.002" iyy="0.002" izz="0.001"
+    ixy="0" ixz="0" iyz="0"/></inertial></link>
+  <link name="arm1_7"><inertial><origin xyz="0 0 0.04"/>
+    <mass value="0.3"/><inertia ixx="0.001" iyy="0.001" izz="0.0005"
+    ixy="0" ixz="0" iyz="0"/></inertial></link>
+  <joint name="q1" type="revolute"><parent link="base"/><child link="arm1_1"/>
+    <origin xyz="0 0 0.15"/><axis xyz="0 0 1"/>
+    <limit lower="-3" upper="3" effort="150" velocity="4"/></joint>
+  <joint name="q2" type="revolute"><parent link="arm1_1"/>
+    <child link="arm1_2"/>
+    <origin xyz="0.05 0 0.22" rpy="0.3 0 0"/><axis xyz="0 1 0"/>
+    <limit lower="-2.2" upper="2.2" effort="150" velocity="4"/></joint>
+  <joint name="q3" type="revolute"><parent link="arm1_2"/>
+    <child link="arm1_3"/>
+    <origin xyz="0 0.04 0.28" rpy="0 -0.2 0.1"/><axis xyz="1 0 0"/>
+    <limit lower="-2.8" upper="2.8" effort="100" velocity="5"/></joint>
+  <joint name="q4" type="revolute"><parent link="arm1_3"/>
+    <child link="arm1_4"/>
+    <origin xyz="0.03 0 0.24"/><axis xyz="0 1 0"/>
+    <limit lower="-2.5" upper="2.5" effort="80" velocity="5"/></joint>
+  <joint name="q5" type="revolute"><parent link="arm1_4"/>
+    <child link="arm1_5"/>
+    <origin xyz="0 0 0.2" rpy="0.1 0.1 0"/><axis xyz="0 0 1"/>
+    <limit lower="-3" upper="3" effort="40" velocity="6"/></joint>
+  <joint name="q6" type="revolute"><parent link="arm1_5"/>
+    <child link="arm1_6"/>
+    <origin xyz="0 0.02 0.16"/><axis xyz="0 1 0"/>
+    <limit lower="-2" upper="2" effort="25" velocity="6"/></joint>
+  <joint name="q7" type="revolute"><parent link="arm1_6"/>
+    <child link="arm1_7"/>
+    <origin xyz="0 0 0.12"/><axis xyz="1 0 0"/>
+    <limit lower="-2.8" upper="2.8" effort="12" velocity="8"/></joint>
+</robot>
+"""
+URDF_2LINK = """<robot name="twolink">
+  <link name="base"/>
+  <link name="l1"><inertial><origin xyz="0 0 0.25"/><mass value="2.0"/>
+    <inertia ixx="0.05" iyy="0.05" izz="0.001" ixy="0" ixz="0" iyz="0"/>
+  </inertial></link>
+  <link name="l2"><inertial><origin xyz="0 0 0.2"/><mass value="1.0"/>
+    <inertia ixx="0.02" iyy="0.02" izz="0.001" ixy="0" ixz="0" iyz="0"/>
+  </inertial></link>
+  <link name="tool"><inertial><origin xyz="0 0 0.05"/><mass value="0.3"/>
+    <inertia ixx="0.001" iyy="0.001" izz="0.001" ixy="0" ixz="0" iyz="0"/>
+  </inertial></link>
+  <joint name="j1" type="revolute"><parent link="base"/><child link="l1"/>
+    <origin xyz="0 0 0.1"/><axis xyz="0 1 0"/>
+    <limit lower="-2" upper="2" effort="100" velocity="5"/></joint>
+  <joint name="j2" type="revolute"><parent link="l1"/><child link="l2"/>
+    <origin xyz="0 0 0.5"/><axis xyz="0 1 0"/>
+    <limit lower="-2.5" upper="2.5" effort="60" velocity="5"/></joint>
+  <joint name="jt" type="fixed"><parent link="l2"/><child link="tool"/>
+    <origin xyz="0 0 0.4" rpy="0 0 1.0"/></joint>
+</robot>
+"""
+# (label, text, load_urdf options, links queried)
+LOADER_ROBOTS = (("xarm", URDF_ARM1, {}, ("arm1_7", "arm1_4")),
+                 ("two_link_floating", URDF_2LINK, {"floating": True},
+                  ("tool", "l1")))
 EXEC_TICKS, EXEC_PERIOD_S, EXEC_Z_TOL = 100, 0.1, 0.05
 
 
@@ -607,6 +742,7 @@ def phase_ns_inverse(torch, dev, card):
     Ba = {name: dynamics.mass_matrix(m, m.home_state())
           for name, m in arms.items()}
     n2, n1 = arms["dual_arm"].nv, arms["arm7"].nv
+    Kq, Ki = ddp_inverse_inputs(torch, dev)
     cases = {f"bench B={NS_B} n={NS_N} iters={NS_ITERS}": (K, NS_ITERS, X),
              f"sim B=1 n={model.nv} iters=24": (Breg[:1].contiguous(), 24,
                                                 None),
@@ -617,7 +753,10 @@ def phase_ns_inverse(torch, dev, card):
              f"qppvm Binv B=1 n={n2} iters=20": (Ba["dual_arm"], 20, None),
              f"qppvm sim B=1 n={n2} iters=24": (
                  Ba["dual_arm"] + 1e-9 * torch.eye(n2, device=dev), 24, None),
-             f"qppvm Binv B=1 n={n1} iters=20": (Ba["arm7"], 20, None)}
+             f"qppvm Binv B=1 n={n1} iters=20": (Ba["arm7"], 20, None),
+             # phase 15's planner: Q_uu and the SRBD inertia
+             "ddp Quu B=1 n=12 iters=22": (Kq, 22, None),
+             "ddp inertia B=1 n=3 iters=16": (Ki, 16, None)}
     max_err, times, bounds = 0.0, {}, {}
     for (label, (Kc, iters, Xc)), bar in zip(cases.items(), NS_BARS_MS):
         Xc = nsi.ns_inverse(Kc, iters) if Xc is None else Xc
@@ -677,10 +816,34 @@ def phase_ns_inverse(torch, dev, card):
             **{f"{field}_{key}": v for label, key in (
                 (f"qppvm Binv B=1 n={n2} iters=20", "dual_arm_binv_b1"),
                 (f"qppvm sim B=1 n={n2} iters=24", "dual_arm_sim_b1"),
-                (f"qppvm Binv B=1 n={n1} iters=20", "arm7_binv_b1"))
+                (f"qppvm Binv B=1 n={n1} iters=20", "arm7_binv_b1"),
+                ("ddp Quu B=1 n=12 iters=22", "ddp_quu_b1"),
+                ("ddp inertia B=1 n=3 iters=16", "ddp_inertia_b1"))
                for field, v in zip(("ms", "plain_ms", "library_ms",
                                     "bound_ms"),
                                    times[label] + (bounds[label][0],))}}
+
+
+def ddp_inverse_inputs(torch, dev):
+    """The first Q_uu (n 12) and the SRBD inertia (n 3) that one quadruped
+    plan at DDP_TEST hands to ns_inverse, recorded as it runs."""
+    from qppvm_tpu_torch.model import zoo
+    from qppvm_tpu_torch.opt import ns_inverse as nsi
+
+    seen, real = {}, nsi.ns_inverse
+
+    def record(K, iters=26):
+        seen.setdefault(K.shape[-1], K.clone())
+        return real(K, iters)
+
+    mpc, st, p_ref = ddp_planner(torch, zoo.quadruped(device=dev), FEET,
+                                 DDP_TEST)
+    nsi.ns_inverse = record
+    try:
+        mpc.plan(st, p_ref, mpc.init_plan(st))
+    finally:
+        nsi.ns_inverse = real
+    return seen[12], seen[3]
 
 
 def check_plant_step(torch, nsi, loop, res):
@@ -1950,6 +2113,350 @@ def phase_entry(torch, dev, card, hierarchy, level_qp, nsi, zoo):
              "native_executor_b1": exec_ns})
 
 
+def ddp_planner(torch, model, contacts, cfg):
+    """A CentroidalMPC at ``cfg`` on ``model`` standing on ``contacts``, the
+    standing state and the target DDP_DEPTH below its CoM."""
+    from qppvm_tpu_torch.model import kinematics
+    from qppvm_tpu_torch.mpc.ddp_mpc import CentroidalMPC, CentroidalMPCConfig
+    from qppvm_tpu_torch.runtime.robot_interface import standing_state
+
+    st = standing_state(model, contacts)
+    com0 = kinematics.com(model, kinematics.fk(model, st))[1][0]
+    p_ref = com0 - torch.tensor([0.0, 0.0, DDP_DEPTH], device=com0.device)
+    return (CentroidalMPC(model, contacts, CentroidalMPCConfig(**cfg)), st,
+            p_ref)
+
+
+def plan_launches(cfg):
+    """NS launches of one plan: Q_uu at every step of every backward pass,
+    and the SRBD inertia once."""
+    from qppvm_tpu_torch.mpc.ddp_mpc import CentroidalMPCConfig
+
+    c = CentroidalMPCConfig(**cfg)
+    return c.horizon * (c.iterations + 1) + 1
+
+
+def ddp_loop(torch, dev, zoo, backend, ticks, force=False, record=0):
+    """tests/test_ddp_mpc.py's squat on the quadruped for ``ticks`` ticks,
+    its levels through ``backend``; with ``force`` the plan's step-0 forces
+    in ForceReg as tests/test_force_plan_tracking.py wires them. Keeps
+    every quantity on the device; sets the launch counts to 0 after the
+    set-up (on_start's polished solves are outside the kernel's profile);
+    returns the run's numbers."""
+    from qppvm_tpu_torch.model import dynamics, kinematics
+    from qppvm_tpu_torch.mpc.ddp_mpc import CentroidalMPC
+    from qppvm_tpu_torch.opt import hierarchy, level_qp
+    from qppvm_tpu_torch.opt import ns_inverse as nsi
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+    from qppvm_tpu_torch.runtime import robot_interface as ri
+
+    model = zoo.quadruped(device=dev)
+    plugin = ForceAccPlugin(model, contact_links=FEET, waist_link="pelvis",
+                            iters=40,
+                            solver_opts=dict(DDP_PROFILE, backend=backend))
+    mpc, st, p_ref = ddp_planner(torch, model, FEET, DDP_TEST)
+    robot = ri.SimRobot(model, state=st, dt=1e-3, substeps=4,
+                        contact_links=FEET)
+    refs, warm, waist = plugin.on_start(robot.state)
+    com0 = p_ref + torch.tensor([0.0, 0.0, DDP_DEPTH], device=dev)
+    weight = float(dynamics.compute_model_data(model, st).total_mass[0]) * 9.81
+    U = mpc.init_plan(st)
+    w_force = torch.full((1,), DDP_FORCE_W, device=dev)
+    n_fail = torch.zeros((), dtype=torch.int64, device=dev)
+    taus, track, plan_s = [], [], 0.0
+    level_qp.launches = hierarchy.fallbacks = nsi.launches = 0
+    dynamics.plain_inverses = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ticks):
+        state = robot.state
+        if i % DDP_PLAN_EVERY == 0:
+            torch.cuda.synchronize()
+            tp = time.perf_counter()
+            res, params = mpc.plan(state, p_ref, U)
+            torch.cuda.synchronize()
+            plan_s += time.perf_counter() - tp
+            U = res.U
+            if force:
+                f_off = CentroidalMPC.force_ref_offset(res, params, weight)
+        refs_t = dict(refs)
+        refs_t["waist_task"] = dict(refs["waist_task"], p=waist + (
+            CentroidalMPC.waist_ref_from_plan(res, DDP_WAIST_K) - com0))
+        if force:
+            refs_t["FORCE_REG"] = dict(refs["FORCE_REG"], f=f_off[None],
+                                       w=w_force)
+        tau, warm, aux = plugin.control_loop(state, refs_t, warm)
+        n_fail = n_fail + aux.solver_failed.sum()
+        robot.set_reference(tau_ref=tau, q_ref=state.q)
+        robot.move()
+        if i < record:
+            taus.append(tau)
+        if force and i % DDP_PLAN_EVERY == DDP_PLAN_EVERY - 1:
+            fz_plan = res.U[0].reshape(len(FEET), 3)[:, 2]
+            track.append(torch.linalg.norm(aux.wrenches[0, :, 2] - fz_plan)
+                         / torch.clamp(torch.linalg.norm(fz_plan), min=1e-6))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    com1 = kinematics.com(model, kinematics.fk(model, robot.state))[1][0]
+    return dict(robot=robot, n_fail=int(n_fail), taus=taus,
+                finite=bool(torch.isfinite(robot.state.q).all()),
+                end_gap=float(res.X[-1, 2] - p_ref[2]),
+                dz=float(com1[2] - com0[2]),
+                track=[float(t) for t in track], plan_s=plan_s,
+                plans=-(-ticks // DDP_PLAN_EVERY), loop_s=loop_s)
+
+
+def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
+    """Phase 15: the centroidal DDP planner on the card. The iLQR on
+    tests/test_ilqr.py's LQR problem against the Riccati gains; one plan at
+    the test's config against the CPU's; the default config timed on the
+    quadruped and the humanoid; tests/test_ddp_mpc.py's squat in closed
+    loop and tests/test_force_plan_tracking.py's force-plan loop, each
+    600 ticks through both kernels, gated as the tests."""
+    from qppvm_tpu_torch.model import dynamics
+    from qppvm_tpu_torch.mpc import ilqr
+
+    # (a) the LQR problem, float32 on the card
+    rng = np.random.default_rng(0)
+    A = np.eye(4) + 0.05 * rng.standard_normal((4, 4))
+    Bm = 0.1 * rng.standard_normal((4, 2))
+    Q, R, x0, H = np.eye(4), 0.1 * np.eye(2), rng.standard_normal(4), 30
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa
+    At, Bt, Qt, Rt = t(A), t(Bm), t(Q), t(R)
+    solve = ilqr.make_solver(lambda x, u: At @ x + Bt @ u,
+                             lambda x, u: 0.5 * (x @ Qt @ x + u @ Rt @ u),
+                             lambda x: 0.5 * x @ Qt @ x,
+                             ilqr.ILQRConfig(iterations=3))
+    nsi.launches = 0
+    dynamics.plain_inverses = 0
+    res = solve(t(x0), torch.zeros((H, 2), device=dev))
+    torch.cuda.synchronize()
+    lqr_ns = nsi.launches
+    if (lqr_ns, dynamics.plain_inverses) != (H * 4, 0):
+        fail(f"ddp LQR: {lqr_ns} NS launches, {dynamics.plain_inverses} "
+             f"plain inverses, expected {H * 4} and 0")
+    P, Ks = Q.copy(), []
+    for _ in range(H):
+        Ks.append(np.linalg.solve(R + Bm.T @ P @ Bm, Bm.T @ P @ A))
+        P = Q + A.T @ P @ (A - Bm @ Ks[-1])
+    Ks = np.stack(Ks[::-1])
+    x, c_opt = x0.copy(), 0.0
+    for k in range(H):
+        u = -Ks[k] @ x
+        c_opt += 0.5 * (x @ Q @ x + u @ R @ u)
+        x = A @ x + Bm @ u
+    c_opt += 0.5 * x @ Q @ x
+    cost_gap = abs(float(res.cost) - c_opt) / c_opt
+    gain_gap = float(np.abs(res.K.cpu().numpy() + Ks).max())
+    print(f"ddp LQR (H {H}, 3 iterations, float32 on the card): cost "
+          f"{float(res.cost):.6f} against the Riccati policy's {c_opt:.6f} "
+          f"(rel {cost_gap:.3g}, bar {LQR_COST_RTOL}); gains within "
+          f"{gain_gap:.3g} of the Riccati gains (bar {LQR_GAIN_REL} x "
+          f"(1 + {np.abs(Ks).max():.3g})); {lqr_ns} NS launches")
+    if not (cost_gap <= LQR_COST_RTOL
+            and gain_gap <= LQR_GAIN_REL * (1 + np.abs(Ks).max())):
+        fail("ddp LQR: the plan misses the Riccati solution")
+
+    # one plan at the test's config, card against CPU
+    quad = zoo.quadruped(device=dev)
+    mpc, st, p_ref = ddp_planner(torch, quad, FEET, DDP_TEST)
+    cpu_mpc, cpu_st, cpu_ref = ddp_planner(
+        torch, zoo.quadruped(device="cpu"), FEET, DDP_TEST)
+    nsi.launches = 0
+    dynamics.plain_inverses = 0
+    res, _ = mpc.plan(st, p_ref, mpc.init_plan(st))
+    torch.cuda.synchronize()
+    plan_ns = nsi.launches
+    if (plan_ns, dynamics.plain_inverses) != (plan_launches(DDP_TEST), 0):
+        fail(f"ddp plan: {plan_ns} NS launches, "
+             f"{dynamics.plain_inverses} plain inverses, expected "
+             f"{plan_launches(DDP_TEST)} and 0")
+    ref, _ = cpu_mpc.plan(cpu_st, cpu_ref, cpu_mpc.init_plan(cpu_st))
+    gaps = []
+    for f, rel in DDP_PLAN_BARS:
+        a, b = getattr(res, f).cpu(), getattr(ref, f)
+        gap, scale = float((a - b).abs().max()), 1 + float(b.abs().max())
+        gaps.append(f"{f} {gap:.3g} (bar {rel * scale:.3g})")
+        if not gap <= rel * scale:
+            fail(f"ddp plan, card against CPU: {f} {gap:.3g} apart")
+    k_gap = float((res.k.cpu() - ref.k).abs().max())
+    k_bar = 1e-3 * (1 + float(ref.U.abs().max()))
+    if not k_gap <= k_bar:
+        fail(f"ddp plan, card against CPU: k {k_gap:.3g} apart")
+    print(f"ddp plan (quadruped, horizon {DDP_TEST['horizon']}, "
+          f"{DDP_TEST['iterations']} iterations), card against CPU: "
+          f"{', '.join(gaps)}, k {k_gap:.3g} (bar {k_bar:.3g}); {plan_ns} NS "
+          f"launches, 0 plain inverses; plan end z {float(res.X[-1, 2]):.4f} "
+          f"m, target {float(p_ref[2]):.4f}")
+
+    # the planner's default config, timed
+    ns_by = {"ddp_lqr": lqr_ns, "ddp_plan_test_config": plan_ns}
+    plan_ms = {}
+    for robot, model, contacts in (("quadruped", quad, FEET),
+                                   ("humanoid", zoo.humanoid(device=dev),
+                                    CONTACTS)):
+        mpc, st, p_ref = ddp_planner(torch, model, contacts, {})
+        res, _ = mpc.plan(st, p_ref, mpc.init_plan(st))
+        nsi.launches = 0
+        dynamics.plain_inverses = 0
+        times = []
+        for _ in range(DDP_PLAN_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, _ = mpc.plan(st, p_ref, res.U)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_plan = nsi.launches / DDP_PLAN_REPS
+        if per_plan != plan_launches({}) or dynamics.plain_inverses != 0:
+            fail(f"ddp default plan ({robot}): {per_plan} NS launches a "
+                 f"plan, {dynamics.plain_inverses} plain inverses")
+        if not (torch.isfinite(res.U).all() and torch.isfinite(res.cost)):
+            fail(f"ddp default plan ({robot}): not finite")
+        ns_by[f"ddp_plans_default_{robot}"] = nsi.launches
+        plan_ms[robot] = statistics.mean(times)
+        print(f"[{card}] ddp plan, default config (horizon "
+              f"{mpc.cfg.horizon}, {mpc.cfg.iterations} iterations, nu "
+              f"{3 * len(contacts)}), {robot}: mean {plan_ms[robot]:.1f} ms "
+              f"over {DDP_PLAN_REPS} plans (min {min(times):.1f}, max "
+              f"{max(times):.1f}); {per_plan:.0f} NS launches a plan, 0 plain "
+              f"inverses; cost {float(res.cost):.4f}, plan end z "
+              f"{float(res.X[-1, 2]):.4f} m, target {float(p_ref[2]):.4f}")
+
+    # (b) the closed-loop squat and (c) the force-plan loop
+    levels_by = {}
+    for label, force in (("ddp_squat_b1", False),
+                         ("ddp_force_plan_b1", True)):
+        loop = ddp_loop(torch, dev, zoo, "kernel", DDP_TICKS, force=force,
+                        record=LOOP_COMPARE)
+        launches, fallbacks = level_qp.launches, hierarchy.fallbacks
+        ns = nsi.launches
+        want_ns = 4 * DDP_TICKS + loop["plans"] * plan_launches(DDP_TEST)
+        track = loop["track"][2:]
+        print(f"{label}: {DDP_TICKS} ticks at B=1, {loop['plans']} plans: "
+              f"{loop['n_fail']} solver failures, finite {loop['finite']}, "
+              f"the last plan's end {loop['end_gap'] * 1e3:+.2f} mm off the "
+              f"target, CoM dz {loop['dz']:+.5f} m"
+              + (f", normal-force tracking error mean {np.mean(track):.4f} "
+                 f"(max {max(track):.4f})" if force else "")
+              + f"; {launches} level launches, {fallbacks} fallbacks, {ns} "
+              f"NS launches, {dynamics.plain_inverses} plain inverses")
+        if loop["n_fail"] or not loop["finite"]:
+            fail(f"{label}: {loop['n_fail']} solver failures")
+        if not loop["dz"] < DDP_DZ_MAX:
+            fail(f"{label}: the CoM moved {loop['dz']:+.5f} m")
+        if not force and not abs(loop["end_gap"]) < DDP_END_TOL:
+            fail(f"{label}: the plan ends {loop['end_gap']:+.4f} m off")
+        if force and not np.mean(track) < DDP_TRACK_MAX:
+            fail(f"{label}: normal-force tracking error {np.mean(track):.4f}")
+        if (launches, fallbacks, ns, dynamics.plain_inverses) != (
+                2 * DDP_TICKS, 0, want_ns, 0):
+            fail(f"{label}: expected {2 * DDP_TICKS} level launches, 0 "
+                 f"fallbacks, {want_ns} NS launches, 0 plain inverses")
+        levels_by[label], ns_by[label] = launches, ns
+        plain = ddp_loop(torch, dev, zoo, "torch", LOOP_COMPARE, force=force,
+                         record=LOOP_COMPARE)
+        tau_err = compare_taus(torch, loop["taus"], plain["taus"], label)
+        robot = loop["robot"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DDP_SIM_TICKS):
+            robot.move()
+        torch.cuda.synchronize()
+        sim_ms = (time.perf_counter() - t0) / DDP_SIM_TICKS * 1e3
+        tick_ms = (loop["loop_s"] - loop["plan_s"]) / DDP_TICKS * 1e3
+        print(f"{label}: first {LOOP_COMPARE} taus within {tau_err:.3g} Nm "
+              f"of the plain level solver's")
+        print(f"[{card}] {label}: {tick_ms:.3f} ms a tick without the plans "
+              f"(plant alone {sim_ms:.3f} ms, 4 substeps), "
+              f"{loop['plan_s'] / loop['plans'] * 1e3:.1f} ms a plan, "
+              f"{loop['loop_s']:.1f} s in all")
+    return levels_by, ns_by
+
+
+def phase_loaders(torch, dev, card, hierarchy, level_qp, nsi, zoo):
+    """Phase 16: ModelInterface on two URDF robots, every query on the card
+    against the CPU; then run.main on config 1 with the arm's URDF in place
+    of zoo: arm7."""
+    import math
+    import tempfile
+
+    from qppvm_tpu_torch import config, run
+    from qppvm_tpu_torch.model import dynamics, spatial
+    from qppvm_tpu_torch.model.interface import ModelInterface
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, text, kw, links in LOADER_ROBOTS:
+            path = Path(tmp) / f"{label}.urdf"
+            path.write_text(text)
+            out = []     # the card's queries, then the CPU's
+            for d in (dev, torch.device("cpu")):
+                mi = ModelInterface.get_model(str(path), device=d, **kw)
+                rng = np.random.default_rng(0)
+                mi.set_joint_position(rng.uniform(-1, 1, mi.model.nj))
+                mi.set_joint_velocity(rng.uniform(-1, 1, mi.model.nj))
+                if mi.model.floating:
+                    mi.set_floating_base_state(
+                        spatial.so3_exp(torch.full((3,), 0.2)),
+                        [0.1, -0.2, 0.8], rng.uniform(-1, 1, 6))
+                mi.update()
+                q = {}
+                for link in links:
+                    q[f"pose {link} R"], q[f"pose {link} p"] = mi.get_pose(
+                        link)
+                    q[f"point {link}"] = mi.get_point_position(
+                        link, [0.01, -0.02, 0.03])
+                    q[f"J {link}"] = mi.get_jacobian(link)
+                q.update(com=mi.get_com(), B=mi.get_inertia_matrix(),
+                         h=mi.compute_nonlinear_term(),
+                         id=mi.compute_inverse_dynamics(
+                             rng.uniform(-1, 1, mi.model.nv)),
+                         g=mi.compute_gravity_compensation(),
+                         ke=dynamics.kinetic_energy(mi.model, mi.state)[0])
+                if any(v.device != d for v in q.values()):
+                    fail(f"loaders {label}: a query left {d}")
+                out.append({k: v.cpu() for k, v in q.items()})
+            gaps = {k: float((out[0][k] - v).abs().max())
+                    / (1 + float(v.abs().max()))
+                    for k, v in out[1].items()}
+            worst = max(gaps, key=gaps.get)
+            print(f"loaders {label} (nj {mi.model.nj}, floating "
+                  f"{mi.model.floating}): {len(gaps)} ModelInterface queries "
+                  f"on the card against the CPU, largest gap {gaps[worst]:.3g}"
+                  f" of scale ({worst}; bar {LOADER_REL})")
+            if not gaps[worst] <= LOADER_REL:
+                fail(f"loaders {label}: {worst} {gaps[worst]:.3g} apart")
+
+        urdf = Path(tmp) / "xarm.urdf"
+        cfg_path = Path(tmp) / "config1_urdf.yaml"
+        cfg_path.write_text((ROOT / "configs" / "config1_arm7.yaml")
+                            .read_text().replace("zoo: arm7",
+                                                 f"urdf: {urdf}"))
+        model = config.build_model(config.load_scenario(str(cfg_path)), dev)
+        if model.device.type != dev.type or model.link_names[-1] != "arm1_7":
+            fail(f"loaders: config 1 on the URDF built {model.link_names} on "
+                 f"{model.device}")
+        nsi.launches = 0
+        level_qp.launches = 0
+        t0 = time.perf_counter()
+        out = run.main(["--config", str(cfg_path), "--seconds", RUN_SECONDS])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    ticks = int(round(float(RUN_SECONDS) * 1e3))
+    keys = {"scenario", "seconds", "p50_ms", "p99_ms", "deadline_misses",
+            "final_q_norm", "device"}
+    nums = [v for k, v in out.items() if k not in ("scenario", "device")]
+    if (set(out) != keys or out["device"] != torch.cuda.get_device_name(dev)
+            or not all(math.isfinite(v) for v in nums)):
+        fail(f"loaders run config 1 on the URDF: {out}")
+    if nsi.launches < ticks:
+        fail(f"loaders run: {nsi.launches} NS launches over {ticks} ticks")
+    print(f"[{card}] run config1_arm7 on the URDF arm --seconds "
+          f"{RUN_SECONDS}: {json.dumps(out)} ({run_s:.1f} s with set-up; "
+          f"{nsi.launches} NS launches, {nsi.launches / ticks:.2f} a tick, "
+          f"{level_qp.launches} level launches)")
+    return {"run_config1_urdf": nsi.launches}
+
+
 def start_side_phase(name):
     """Start phase ``name`` in a process of its own (``--phase name``),
     its output to a temporary file; returns (process, file)."""
@@ -2002,7 +2509,9 @@ def main():
         "qppvm": lambda: phase_qppvm(*args, zoo),
         "walk": lambda: phase_walk(*args, zoo),
         "async": lambda: phase_async(*args, zoo),
-        "entry": lambda: phase_entry(*args, zoo)}
+        "entry": lambda: phase_entry(*args, zoo),
+        "ddp": lambda: phase_ddp(*args, zoo),
+        "loaders": lambda: phase_loaders(*args, zoo)}
     if sys.argv[1:2] == ["--phase"]:    # one phase in a process of its own
         for m in (level_qp, ns_inverse):   # loaded, or built, before timing
             m.library()
@@ -2158,6 +2667,7 @@ def print_kernels_line(torch, run):
     walk_levels, walk_ns = run["walk"]
     async_levels, async_ns = run["async"]
     entry_levels, entry_ns = run["entry"]
+    ddp_levels, ddp_ns = run["ddp"]
     ns_row = run["ns_row"]
     ns_row["launches_by_path"] = {"ns_path": ns_row["launches"],
                                   "closed_loop_b1": loop_ns,
@@ -2169,7 +2679,7 @@ def print_kernels_line(torch, run):
                                   **qppvm_ns,
                                   "walk_stride_b1": walk_ns,
                                   "async_loop_b1_and_plans": async_ns,
-                                  **entry_ns}
+                                  **entry_ns, **ddp_ns, **run["loaders"]}
 
     b_ms, b_by = bound_ms(sum(f for f, _ in level_bound),
                           sum(b for _, b in level_bound))
@@ -2196,7 +2706,7 @@ def print_kernels_line(torch, run):
                              **qppvm_levels,
                              "walk_stride_b1": walk_levels,
                              "async_plans_b512": async_levels,
-                             **entry_levels}},
+                             **entry_levels, **ddp_levels}},
         ns_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,16 @@
 """Scenario configuration: one declarative file per control scenario (port of
 qppvm_tpu/config.py).
 
-A scenario names everything a run needs: the robot (a zoo name; URDF
-loading is not ported yet), the plugin and its gains, solver options, the
-simulated robot and the MPC layer. The five BASELINE configurations ship as
+A scenario names everything a run needs: the robot (a zoo name or a URDF
+file), the plugin and its gains, solver options, the simulated robot and
+the MPC layer. The five BASELINE configurations ship as
 ``configs/config{1..5}_*.yaml``.
 
 Build chain: ScenarioConfig -> build_scenario(cfg, device) -> (model,
 plugin, robot) for ``runtime.plugin.ControlLoop``, or build_mpc for
-``mpc.sampling.SamplingMPC``. The model is built on ``device``, the card
-by default, and the rest on the model's device. One card: the reference's
+``mpc.sampling.SamplingMPC`` or ``mpc.ddp_mpc.CentroidalMPC``. The model is
+built on ``device``, the card by default, and the rest on the model's
+device. One card: the reference's
 device mesh (``mpc.mesh_axis``) has no counterpart yet (ROADMAP queue 1
 item 8).
 """
@@ -94,10 +95,11 @@ class SimConfig:
 
 @dataclasses.dataclass
 class MPCConfig:
-    """The sampling-MPC layer (config 5)."""
+    """The MPC layer (config 5): sampling MPPI, or the centroidal iLQR
+    (``horizon``, and ``qp_iters`` as its iterations)."""
 
     enabled: bool = False
-    type: str = "sampling"             # sampling (MPPI) | ilqr (not ported)
+    type: str = "sampling"             # sampling (MPPI) | ilqr
     n_samples: int = 64
     horizon: int = 8
     noise_std: float = 0.05
@@ -166,12 +168,12 @@ def load_scenario(path: str) -> ScenarioConfig:
 
 def build_model(cfg: ScenarioConfig, device=devices.DEFAULT):
     """The scenario's robot model on ``device``."""
-    if cfg.robot.urdf is not None:
-        raise NotImplementedError(
-            "URDF robots are not ported yet (ROADMAP queue 1 item 9: "
-            "model/urdf.py); use a zoo robot")
-    from qppvm_tpu_torch.model import zoo
-    return zoo.by_name(cfg.robot.zoo, device=devices.resolve(device))
+    if cfg.robot.zoo is not None:
+        from qppvm_tpu_torch.model import zoo
+        return zoo.by_name(cfg.robot.zoo, device=devices.resolve(device))
+    from qppvm_tpu_torch.model.urdf import load_urdf
+    return load_urdf(cfg.robot.urdf, floating=cfg.robot.floating,
+                     device=device)
 
 
 def build_plugin(cfg: ScenarioConfig, model):
@@ -212,16 +214,19 @@ def build_sim(cfg: ScenarioConfig, model):
 
 
 def build_mpc(cfg: ScenarioConfig, plugin):
-    """The scenario's planner on the plugin's device, its rollouts' levels
+    """The scenario's planner on the plugin's device: the centroidal iLQR
+    (``mpc.type: ilqr``), else sampling MPC with its rollouts' levels
     through the level kernel (its plain version on CPU tensors). One card:
     no mesh (ROADMAP queue 1 item 8)."""
     if not cfg.mpc.enabled:
         raise ValueError(f"scenario {cfg.name!r} has no mpc section enabled")
     m = cfg.mpc
     if m.type == "ilqr":
-        raise NotImplementedError(
-            "the centroidal iLQR planner is not ported yet (ROADMAP queue 1 "
-            "item 7: mpc/ddp_mpc.py)")
+        from qppvm_tpu_torch.mpc.ddp_mpc import (CentroidalMPC,
+                                                 CentroidalMPCConfig)
+        return CentroidalMPC(
+            plugin.model, plugin.contact_links,
+            CentroidalMPCConfig(horizon=m.horizon, iterations=m.qp_iters))
     from qppvm_tpu_torch.mpc.rollout import RolloutConfig
     from qppvm_tpu_torch.mpc.sampling import MPPIConfig, SamplingMPC
     mppi = MPPIConfig(n_samples=m.n_samples, horizon=m.horizon,

@@ -25,6 +25,9 @@ MODEL_META = ("parent", "joint_type", "joint_names", "link_names",
 STATE_FIELDS = ("q", "qd", "base_rot", "base_pos", "base_vel")
 QPSTATE_FIELDS = ("x", "z", "y", "Kinv", "rho_scale")
 ESTIMATOR_FIELDS = ("base_pos", "anchors", "active_prev")
+ILQR_RESULT_FIELDS = ("U", "X", "cost", "K", "k", "reg")
+CENTROIDAL_FIELDS = ("mass", "inertia", "footholds", "active", "gravity",
+                     "dt")
 
 
 def robot_model(arrays: Mapping[str, np.ndarray], meta: Mapping[str, Any],
@@ -78,3 +81,26 @@ def estimator_state(arrays: Mapping[str, np.ndarray],
     return EstimatorState(**{k: torch.tensor(np.asarray(arrays[k])[None],
                                              dtype=dtype, device=device)
                              for k in ESTIMATOR_FIELDS})
+
+
+def _tensors(arrays, fields, device, dtype):
+    device = devices.resolve(device)
+    return {k: torch.tensor(np.asarray(arrays[k]), dtype=dtype,
+                            device=device) for k in fields}
+
+
+def ilqr_result(arrays: Mapping[str, np.ndarray], device=devices.DEFAULT,
+                dtype=torch.float32):
+    """The iLQR's ILQRResult from the reference's arrays
+    (``ILQR_RESULT_FIELDS``)."""
+    from qppvm_tpu_torch.mpc.ilqr import ILQRResult
+    return ILQRResult(**_tensors(arrays, ILQR_RESULT_FIELDS, device, dtype))
+
+
+def centroidal_params(arrays: Mapping[str, np.ndarray],
+                      device=devices.DEFAULT, dtype=torch.float32):
+    """The SRBD CentroidalParams from the reference's arrays
+    (``CENTROIDAL_FIELDS``)."""
+    from qppvm_tpu_torch.mpc.centroidal import CentroidalParams
+    return CentroidalParams(**_tensors(arrays, CENTROIDAL_FIELDS, device,
+                                       dtype))

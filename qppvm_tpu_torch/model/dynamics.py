@@ -90,6 +90,12 @@ def nonlinear_term(model: RobotModel, state: RobotState,
     return rnea(model, state, udot, gravity=True, kin=kin)
 
 
+def inverse_dynamics(model: RobotModel, state: RobotState, udot,
+                     kin: Optional[kinematics.KinData] = None):
+    """tau = ID(q, qd, udot), (B, nv): RNEA with gravity."""
+    return rnea(model, state, udot, gravity=True, kin=kin)
+
+
 def _rot6(R):
     """Block-diagonal diag(R, R) of (..., 3, 3) rotations."""
     Z = torch.zeros_like(R)
@@ -128,7 +134,8 @@ def ns_kernel_takes(dtype, n: int, max_n: int) -> bool:
 
 def mass_matrix_inverse(B, iters: int = 24, reg: float = 0.0):
     """``iters`` Newton-Schulz iterations of ``linalg.spd_inverse_ns`` (its
-    iters - 2 plus 2 refinement steps) on mass matrices B (B, n, n), plus
+    iters - 2 plus 2 refinement steps) on SPD matrices B (B, n, n) (mass
+    matrices; also the DDP planner's Q_uu and SRBD inertia), plus
     ``reg`` I where ``reg`` is not 0. A CUDA tensor the NS kernel takes goes
     to it (``ns_inverse.ns_inverse(K, iters)``, one launch); any other CUDA
     tensor runs the plain version and adds one to ``plain_inverses``. A CPU
@@ -196,6 +203,14 @@ def integrate(model: RobotModel, state: RobotState, udot, dt) -> RobotState:
     qd = state.qd + dt * udot
     return RobotState(q=state.q + dt * qd, qd=qd, base_rot=state.base_rot,
                       base_pos=state.base_pos, base_vel=state.base_vel)
+
+
+def kinetic_energy(model: RobotModel, state: RobotState,
+                   kin: Optional[kinematics.KinData] = None):
+    """(B,) kinetic energy 0.5 u^T B(q) u."""
+    u = state.u if model.floating else state.qd
+    M = mass_matrix(model, state, kin=kin)
+    return 0.5 * torch.einsum("bi,bij,bj->b", u, M, u)
 
 
 @dataclasses.dataclass(frozen=True)

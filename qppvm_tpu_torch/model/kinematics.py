@@ -183,6 +183,14 @@ def link_pose(model: RobotModel, kin: KinData, link: str):
     return kin.R[:, li], kin.p[:, li]
 
 
+def point_position(model: RobotModel, kin: KinData, link: str, local_point):
+    """(B, 3) world position of a point given in the coordinates of a named
+    link or frame."""
+    R, p = link_pose(model, kin, link)
+    local = torch.as_tensor(local_point, dtype=p.dtype, device=p.device)
+    return p + R @ local
+
+
 def _link_masses(model: RobotModel):
     """Per-link mass and mass-weighted local CoM, read off spatial.mcI's
     blocks: m*cx = M[2,4], m*cy = M[0,5], m*cz = M[1,3]."""

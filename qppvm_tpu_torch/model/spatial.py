@@ -25,6 +25,62 @@ def skew(v):
     ], dim=-2)
 
 
+def _mat3(rows):
+    """(..., 3, 3) from a 3 x 3 nested list of (...) tensors."""
+    return torch.stack([torch.stack(row, dim=-1) for row in rows], dim=-2)
+
+
+def _cos_sin(theta):
+    c, s = torch.cos(theta), torch.sin(theta)
+    return c, s, torch.ones_like(c), torch.zeros_like(c)
+
+
+def rot_x(theta):
+    """Coordinate rotation about x by ``theta``."""
+    c, s, o, z = _cos_sin(theta)
+    return _mat3([[o, z, z], [z, c, s], [z, -s, c]])
+
+
+def rot_y(theta):
+    """Coordinate rotation about y by ``theta``."""
+    c, s, o, z = _cos_sin(theta)
+    return _mat3([[c, z, -s], [z, o, z], [s, z, c]])
+
+
+def rot_z(theta):
+    """Coordinate rotation about z by ``theta``."""
+    c, s, o, z = _cos_sin(theta)
+    return _mat3([[c, s, z], [-s, c, z], [z, z, o]])
+
+
+def rot_axis_angle(axis, theta):
+    """Rodrigues: E = R(axis, theta)^T, the coordinate rotation (child from
+    parent) of a revolute joint turning the child by +theta about ``axis``
+    (parent coordinates)."""
+    theta = torch.as_tensor(theta, dtype=axis.dtype, device=axis.device)
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
+    c, s = torch.cos(theta)[..., None, None], torch.sin(theta)[..., None, None]
+    K = skew(axis)
+    I = torch.eye(3, dtype=axis.dtype, device=axis.device)
+    return (I + s * K + (1.0 - c) * (K @ K)).transpose(-1, -2)
+
+
+def xform(E, p):
+    """Spatial motion transform X = [[E, 0], [-E p^x, E]] (v_child = X
+    v_parent) of a child frame at origin p, orientation E."""
+    Z = torch.zeros_like(E)
+    top = torch.cat([E, Z], dim=-1)
+    bot = torch.cat([-E @ skew(p), E], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def xform_inv_apply(E, p, v):
+    """Apply X^{-1} (child->parent motion transform) to motion vector v."""
+    w = torch.einsum("...ji,...j->...i", E, v[..., :3])
+    lin = torch.einsum("...ji,...j->...i", E, v[..., 3:]) + _cross(p, w)
+    return torch.cat([w, lin], dim=-1)
+
+
 def xform_apply(E, p, v):
     """Apply X (parent->child motion transform) to motion vector v."""
     w = torch.einsum("...ij,...j->...i", E, v[..., :3])
@@ -32,11 +88,28 @@ def xform_apply(E, p, v):
     return torch.cat([w, lin], dim=-1)
 
 
+def xform_force_apply(E, p, f):
+    """Apply X* = X^{-T} (parent->child force transform) to force f."""
+    n = torch.einsum("...ij,...j->...i", E, f[..., :3] - _cross(p, f[..., 3:]))
+    lin = torch.einsum("...ij,...j->...i", E, f[..., 3:])
+    return torch.cat([n, lin], dim=-1)
+
+
 def xform_force_inv_apply(E, p, f):
     """Apply (X*)^{-1} = X^T (child->parent force transform)."""
     lin = torch.einsum("...ji,...j->...i", E, f[..., 3:])
     n = torch.einsum("...ji,...j->...i", E, f[..., :3]) + _cross(p, lin)
     return torch.cat([n, lin], dim=-1)
+
+
+def crm(v):
+    """Spatial cross-product operator of motion vector v: crm(v) @ m =
+    v x m."""
+    w, lin = v[..., :3], v[..., 3:]
+    Z = torch.zeros_like(skew(w))
+    top = torch.cat([skew(w), Z], dim=-1)
+    bot = torch.cat([skew(lin), skew(w)], dim=-1)
+    return torch.cat([top, bot], dim=-2)
 
 
 def cross_motion(v, m):
@@ -61,6 +134,22 @@ def mcI(m, c, Ic):
     top = torch.cat([Ic + m * (C @ C.transpose(-1, -2)), m * C], dim=-1)
     bot = torch.cat([m * C.transpose(-1, -2), m * I3], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+def inertia_apply(I, v):
+    """I @ v for 6x6 spatial inertia."""
+    return torch.einsum("...ij,...j->...i", I, v)
+
+
+def quat_to_mat(qw, qx, qy, qz):
+    """Unit quaternion (w, x, y, z) -> rotation matrix (rotates vectors)."""
+    return _mat3([
+        [1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qw * qz),
+         2 * (qx * qz + qw * qy)],
+        [2 * (qx * qy + qw * qz), 1 - 2 * (qx * qx + qz * qz),
+         2 * (qy * qz - qw * qx)],
+        [2 * (qx * qz - qw * qy), 2 * (qy * qz + qw * qx),
+         1 - 2 * (qx * qx + qy * qy)]])
 
 
 def so3_log(R):

@@ -5,6 +5,10 @@ Loads a ScenarioConfig, builds (model, plugin, simulated robot) and runs
 either a closed-loop control session (ControlLoop at the scenario's dt) or,
 for an MPC scenario, sampling-MPC plan steps. Runs on the CUDA card, or on
 the CPU with ``--cpu``; prints one JSON line, which names the device.
+
+``mpc.type: ilqr`` raises TypeError at ``init_plan``, as the reference's
+runner does: it drives every planner with the sampling planner's calls,
+and ``CentroidalMPC.init_plan`` needs the state.
 """
 from __future__ import annotations
 
@@ -100,7 +104,8 @@ def _run_mpc(cfg, cfgmod, model, plugin, args):
     mpc = cfgmod.build_mpc(cfg, plugin)
     state = model.home_state()
     refs, warm, _ = plugin.on_start(state)
-    U = mpc.init_plan()
+    U = mpc.init_plan()     # TypeError for a CentroidalMPC, as the reference
+
     gen = torch.Generator(device=model.device).manual_seed(0)
     for _ in range(args.mpc_steps):
         U, _ = mpc.plan(gen, state, refs, warm, U)

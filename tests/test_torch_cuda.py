@@ -54,6 +54,12 @@ The deployment runtime on the card: the leg-odometry estimator against
 the same updates on the CPU, one AsyncPlanner plan on its side stream
 against a synchronous plan from the same seed, and ``run.main`` on
 config 1.
+
+The centroidal DDP planner: the NS kernel at its two shapes (the SRBD
+inertia, n 3 at 16 iterations; Q_uu, n 12 at 22), the iLQR's Q_uu routing
+(float32 to the kernel, float64 to the plain NS, counted) on
+tests/test_ilqr.py's LQR problem, and one quadruped plan on the card
+against the same plan on the CPU.
 """
 import pytest
 import torch
@@ -219,7 +225,8 @@ def _ns_passes(K, X, ref):
     return close & (resid.amax(1) < 5e-3)
 
 
-@pytest.mark.parametrize("n,iters", [(1, 26), (7, 20), (7, 26), (8, 26),
+@pytest.mark.parametrize("n,iters", [(1, 26), (3, 16), (7, 20), (7, 26),
+                                     (8, 26), (12, 22),
                                      (15, 20), (15, 24), (16, 24),
                                      (22, 24), (37, 24),
                                      (38, 24), (40, 26), (44, 24), (63, 26),
@@ -492,3 +499,78 @@ def test_run_config1_on_card(device):
     assert out["device"] == torch.cuda.get_device_name(device)
     assert all(math.isfinite(v) for k, v in out.items()
                if k not in ("scenario", "device"))
+
+
+def _lqr(device, dtype):
+    """tests/test_ilqr.py's LQR problem and the iLQR's solve on it."""
+    import numpy as np
+
+    from qppvm_tpu_torch.mpc import ilqr
+
+    rng = np.random.default_rng(0)
+    A = np.eye(4) + 0.05 * rng.standard_normal((4, 4))
+    B = 0.1 * rng.standard_normal((4, 2))
+    x0 = rng.standard_normal(4)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    A, B, Q, R, x0 = t(A), t(B), t(np.eye(4)), t(0.1 * np.eye(2)), t(x0)
+    solve = ilqr.make_solver(lambda x, u: A @ x + B @ u,
+                             lambda x, u: 0.5 * (x @ Q @ x + u @ R @ u),
+                             lambda x: 0.5 * x @ Q @ x,
+                             ilqr.ILQRConfig(iterations=3))
+    return solve(x0, torch.zeros((30, 2), dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ilqr_quu_routing(device, dtype):
+    """The backward pass inverts Q_uu once a step: float32 through the NS
+    kernel (30 steps x 4 passes = 120 launches), float64 through the plain
+    NS, counted; both solve the LQR problem as the CPU does in float64."""
+    from qppvm_tpu_torch.model import dynamics
+
+    ns_inverse.launches = 0
+    dynamics.plain_inverses = 0
+    res = _lqr(device, dtype)
+    torch.cuda.synchronize()
+    kernel = dtype == torch.float32
+    assert ns_inverse.launches == (120 if kernel else 0)
+    assert dynamics.plain_inverses == (0 if kernel else 120)
+    ref = _lqr("cpu", torch.float64)
+    tol = 1e-4 if kernel else 1e-10
+    for f in ("U", "X", "K"):
+        got, want = getattr(res, f).cpu().double(), getattr(ref, f)
+        assert float((got - want).abs().max()) <= tol * (
+            1 + float(want.abs().max())), f
+
+
+def test_ddp_plan_card_matches_cpu(device):
+    """One quadruped plan at tests/test_ddp_mpc.py's config (horizon 15, 4
+    iterations) in float32: 76 NS launches and no plain inverse on the
+    card; the plan held to the CPU's (plain inverses) at chip_smoke.py's
+    phase 15 bars."""
+    from qppvm_tpu_torch.model import dynamics, kinematics, zoo
+    from qppvm_tpu_torch.mpc.ddp_mpc import CentroidalMPC, CentroidalMPCConfig
+    from qppvm_tpu_torch.runtime.robot_interface import standing_state
+
+    feet = ("foot_fl", "foot_fr", "foot_hr", "foot_hl")
+    plans = {}
+    for d in (device, torch.device("cpu")):
+        model = zoo.quadruped(device=d)
+        st = standing_state(model, feet)
+        com0 = kinematics.com(model, kinematics.fk(model, st))[1][0]
+        mpc = CentroidalMPC(model, feet, CentroidalMPCConfig(
+            horizon=15, dt=0.02, iterations=4))
+        ns_inverse.launches = 0
+        dynamics.plain_inverses = 0
+        plans[d.type] = mpc.plan(st, com0 - torch.tensor(
+            [0.0, 0.0, 0.04], device=d), mpc.init_plan(st))[0]
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert (ns_inverse.launches, dynamics.plain_inverses) == (76, 0)
+    got, want = plans["cuda"], plans["cpu"]
+    for f, rel in (("U", 1e-3), ("X", 1e-3), ("K", 1e-2), ("cost", 1e-5),
+                   ("reg", 1e-6)):
+        a, b = getattr(got, f).cpu(), getattr(want, f)
+        assert float((a - b).abs().max()) <= rel * (
+            1 + float(b.abs().max())), f
+    assert float((got.k.cpu() - want.k).abs().max()) <= 1e-3 * (
+        1 + float(want.U.abs().max()))

@@ -32,6 +32,7 @@ from qppvm_tpu import run as jrun
 from qppvm_tpu.plugins.qppvm import QPPVMPlugin as JQPPVM
 from qppvm_tpu.runtime import async_mpc as jasync
 from qppvm_tpu_torch import config, run
+from qppvm_tpu_torch.mpc.ddp_mpc import CentroidalMPC
 from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
 from qppvm_tpu_torch.plugins.qppvm import QPPVMPlugin
 from qppvm_tpu_torch.runtime import async_mpc, native
@@ -88,14 +89,34 @@ def test_config_loads_like_reference(path):
     assert config.ScenarioConfig.from_dict(got.to_dict()) == got
 
 
-def test_config_checks():
+def _arm_urdf(tmp_path):
+    """A 7-link chain whose links are named as zoo.arm7's (arm1_1 ...
+    arm1_7), written to a file."""
+    links = "".join(f"""<link name="arm1_{i}"><inertial><origin xyz="0 0 0.1"/>
+      <mass value="1.0"/><inertia ixx="0.01" iyy="0.01" izz="0.005"/>
+      </inertial></link>""" for i in range(1, 8))
+    joints = "".join(f"""<joint name="j{i}" type="revolute">
+      <parent link="{'base' if i == 1 else f'arm1_{i - 1}'}"/>
+      <child link="arm1_{i}"/><origin xyz="0 0 0.2"/>
+      <axis xyz="{'0 0 1' if i % 2 else '0 1 0'}"/></joint>"""
+                     for i in range(1, 8))
+    path = tmp_path / "arm.urdf"
+    path.write_text(f'<robot name="arm"><link name="base"/>{links}{joints}'
+                    '</robot>')
+    return path
+
+
+def test_config_checks(tmp_path):
     with pytest.raises(ValueError, match="unknown"):
         config.ScenarioConfig.from_dict({"robot": {"zoo": "arm7", "bogus": 1}})
     with pytest.raises(ValueError, match="exactly one"):
         config.ScenarioConfig.from_dict({"robot": {}})
-    cfg = config.ScenarioConfig.from_dict({"robot": {"urdf": "robot.urdf"}})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        config.build_model(cfg, device="cpu")
+    cfg = config.ScenarioConfig.from_dict(
+        {"robot": {"urdf": str(_arm_urdf(tmp_path)), "floating": True}})
+    model = config.build_model(cfg, device="cpu")
+    assert model.floating and model.nj == 7
+    assert model.link_names[-1] == "arm1_7"
+    assert model.device == torch.device("cpu")
     cfg = config.ScenarioConfig.from_dict({
         "robot": {"zoo": "arm7"},
         "plugin": {"type": "qppvm", "left_ee": "arm1_7",
@@ -138,27 +159,37 @@ def test_build_mpc_on_cpu():
             mpc.mppi.mu_scale_range, mpc.rcfg.qp_iters) == (40.0, 0.08,
                                                             0.25, 12)
     cfg.mpc.type = "ilqr"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        config.build_mpc(cfg, mpc.plugin)
+    ddp = config.build_mpc(cfg, mpc.plugin)
+    assert isinstance(ddp, CentroidalMPC) and ddp.model is model
+    assert (ddp.cfg.horizon, ddp.cfg.iterations) == (2, 12)
+    assert ddp.contact_links == cfg.plugin.contact_links
 
 
 # ---- run.py --------------------------------------------------------------
 
-def test_run_mpc_and_unported_scenarios(tmp_path):
+def test_run_mpc_and_unported_scenarios(tmp_path, monkeypatch):
     out = run.main(["--config", _config(5), "--samples", "4", "--horizon",
                     "2", "--cpu"])
     assert set(out) == MPC_KEYS | {"device"}
     assert (out["n_samples"], out["horizon"], out["devices"],
             out["device"]) == (4, 2, 1, "cpu")
     assert np.isfinite(out["plan_norm"])
+    # a URDF robot runs like a zoo one
     urdf = tmp_path / "urdf.yaml"
-    urdf.write_text("robot:\n  urdf: robot.urdf\n")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run.main(["--config", str(urdf), "--cpu"])
+    urdf.write_text(open(_config(1)).read().replace(
+        "zoo: arm7", f"urdf: {_arm_urdf(tmp_path)}"))
+    out = run.main(["--config", str(urdf), "--seconds", "0.002", "--cpu"])
+    assert set(out) == LOOP_KEYS | {"device"}
+    assert np.isfinite(out["final_q_norm"])
+    # the reference's runner calls the iLQR planner's init_plan without the
+    # state it needs: TypeError before any plan, copied (on_start stubbed,
+    # the fault is after it)
     ilqr = tmp_path / "ilqr.yaml"
     ilqr.write_text(open(_config(5)).read().replace(
         "enabled: true", "enabled: true\n  type: ilqr"))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    monkeypatch.setattr(ForceAccPlugin, "on_start",
+                        lambda self, st: (None,) * 3)
+    with pytest.raises(TypeError, match="init_plan.*state"):
         run.main(["--config", str(ilqr), "--cpu"])
     if not torch.cuda.is_available():
         # without --cpu the entry point runs on the card, and raises here
