@@ -41,9 +41,10 @@ Phases, each fatal on failure:
    the wrapper's host time), the plain version and torch.linalg.inv, and
    print both bounds (float32 on the CUDA cores, 3xTF32 on the tensor
    cores), the kernel's share of the lesser and its ratio to
-   torch.linalg.inv at each shape; also phase 15's planner's two shapes,
-   the first Q_uu (n 12, 22 iterations) and the SRBD inertia (n 3, 16)
-   that a quadruped plan hands to the kernel, recorded as it runs;
+   torch.linalg.inv at each shape; also every shape phase 15 hands the
+   kernel, recorded as it runs: the first Q_uu of a quadruped plan (n 12,
+   22 iterations), of a humanoid plan (n 6, 22) and of the LQR problem
+   (n 2, 22), and the quadruped's SRBD inertia (n 3, 16);
 5. the closed loop (runtime/rt_loop.py): 500 ticks of the humanoid's RT
    tick against the contact plant, gated on zero solver failures and a
    stand within 0.08 m; ms per tick, sim-only ms per tick and their
@@ -146,9 +147,10 @@ Phases, each fatal on failure:
    traced through the native ring; the executor's deadline stats;
 15. the centroidal DDP planner (mpc/ddp_mpc.py): the iLQR on
    tests/test_ilqr.py's LQR problem in float32 (120 NS launches, cost and
-   gains held to the Riccati solution); one quadruped plan at
-   tests/test_ddp_mpc.py's config (horizon 15, 4 iterations) held to the
-   same plan on the CPU (76 NS launches, 0 plain inverses); the default
+   gains held to the Riccati solution); one quadruped plan and one
+   humanoid plan (l_sole, r_sole) at tests/test_ddp_mpc.py's config
+   (horizon 15, 4 iterations) each held to the same plan on the CPU (76
+   NS launches, 0 plain inverses); the default
    config (horizon 40, 8 iterations, 361 NS launches a plan) timed on the
    quadruped and the humanoid; then tests/test_ddp_mpc.py's squat, 600
    ticks at B 1 with a plan every 20 in the level kernel's profile (2
@@ -261,7 +263,7 @@ MPC_DRAWS = 3
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES_S = 67e12, 495e12, 3.35e12
 # bars on the NS kernel's time (ms) at each phase 4 shape, printed and not
 # gated: a slow kernel that is right stays
-NS_BARS_MS = (1.0, 0.107, 0.60, None, None, None, None, None, None)
+NS_BARS_MS = (1.0, 0.107, 0.60) + (None,) * 8
 # phase 9: tests/test_capture_step.py on the humanoid. The plugin (6D
 # wrenches in friction cones at mu 0.6, switchable contacts, iters 40; its
 # level shapes, n 50, are the "capture" ROBOT_SHAPES), the single-support
@@ -742,7 +744,7 @@ def phase_ns_inverse(torch, dev, card):
     Ba = {name: dynamics.mass_matrix(m, m.home_state())
           for name, m in arms.items()}
     n2, n1 = arms["dual_arm"].nv, arms["arm7"].nv
-    Kq, Ki = ddp_inverse_inputs(torch, dev)
+    ddp_K = ddp_inverse_inputs(torch, dev)
     cases = {f"bench B={NS_B} n={NS_N} iters={NS_ITERS}": (K, NS_ITERS, X),
              f"sim B=1 n={model.nv} iters=24": (Breg[:1].contiguous(), 24,
                                                 None),
@@ -755,8 +757,12 @@ def phase_ns_inverse(torch, dev, card):
                  Ba["dual_arm"] + 1e-9 * torch.eye(n2, device=dev), 24, None),
              f"qppvm Binv B=1 n={n1} iters=20": (Ba["arm7"], 20, None),
              # phase 15's planner: Q_uu and the SRBD inertia
-             "ddp Quu B=1 n=12 iters=22": (Kq, 22, None),
-             "ddp inertia B=1 n=3 iters=16": (Ki, 16, None)}
+             "ddp Quu B=1 n=12 iters=22": (ddp_K["quadruped"], 22, None),
+             "ddp Quu B=1 n=6 iters=22": (ddp_K["humanoid"], 22, None),
+             "ddp LQR Quu B=1 n=2 iters=22": (ddp_K["lqr"], 22, None),
+             "ddp inertia B=1 n=3 iters=16": (ddp_K["inertia"], 16, None)}
+    if len(NS_BARS_MS) != len(cases):
+        fail(f"phase 4: {len(NS_BARS_MS)} bars for {len(cases)} shapes")
     max_err, times, bounds = 0.0, {}, {}
     for (label, (Kc, iters, Xc)), bar in zip(cases.items(), NS_BARS_MS):
         Xc = nsi.ns_inverse(Kc, iters) if Xc is None else Xc
@@ -818,6 +824,8 @@ def phase_ns_inverse(torch, dev, card):
                 (f"qppvm sim B=1 n={n2} iters=24", "dual_arm_sim_b1"),
                 (f"qppvm Binv B=1 n={n1} iters=20", "arm7_binv_b1"),
                 ("ddp Quu B=1 n=12 iters=22", "ddp_quu_b1"),
+                ("ddp Quu B=1 n=6 iters=22", "ddp_quu_humanoid_b1"),
+                ("ddp LQR Quu B=1 n=2 iters=22", "ddp_lqr_quu_b1"),
                 ("ddp inertia B=1 n=3 iters=16", "ddp_inertia_b1"))
                for field, v in zip(("ms", "plain_ms", "library_ms",
                                     "bound_ms"),
@@ -825,8 +833,10 @@ def phase_ns_inverse(torch, dev, card):
 
 
 def ddp_inverse_inputs(torch, dev):
-    """The first Q_uu (n 12) and the SRBD inertia (n 3) that one quadruped
-    plan at DDP_TEST hands to ns_inverse, recorded as it runs."""
+    """Every shape phase 15 hands to ns_inverse, recorded as it runs: the
+    first Q_uu of a quadruped plan (n 12) and of a humanoid plan (n 6) at
+    DDP_TEST, the quadruped's SRBD inertia (n 3) and the first Q_uu of the
+    LQR problem (n 2)."""
     from qppvm_tpu_torch.model import zoo
     from qppvm_tpu_torch.opt import ns_inverse as nsi
 
@@ -836,14 +846,18 @@ def ddp_inverse_inputs(torch, dev):
         seen.setdefault(K.shape[-1], K.clone())
         return real(K, iters)
 
-    mpc, st, p_ref = ddp_planner(torch, zoo.quadruped(device=dev), FEET,
-                                 DDP_TEST)
     nsi.ns_inverse = record
     try:
-        mpc.plan(st, p_ref, mpc.init_plan(st))
+        for model, contacts in ((zoo.quadruped(device=dev), FEET),
+                                (zoo.humanoid(device=dev), CONTACTS)):
+            mpc, st, p_ref = ddp_planner(torch, model, contacts, DDP_TEST)
+            mpc.plan(st, p_ref, mpc.init_plan(st))
+        solve, x0, U0 = lqr_problem(torch, dev)[:3]
+        solve(x0, U0)
     finally:
         nsi.ns_inverse = real
-    return seen[12], seen[3]
+    return {"quadruped": seen[12], "humanoid": seen[6], "inertia": seen[3],
+            "lqr": seen[2]}
 
 
 def check_plant_step(torch, nsi, loop, res):
@@ -2127,6 +2141,24 @@ def ddp_planner(torch, model, contacts, cfg):
             p_ref)
 
 
+def lqr_problem(torch, dev):
+    """tests/test_ilqr.py's LQR problem in float32 on ``dev``: (solve, x0,
+    U0, (A, B, Q, R) as numpy); 3 iterations over a horizon of 30."""
+    from qppvm_tpu_torch.mpc import ilqr
+
+    rng = np.random.default_rng(0)
+    A = np.eye(4) + 0.05 * rng.standard_normal((4, 4))
+    Bm = 0.1 * rng.standard_normal((4, 2))
+    Q, R, x0 = np.eye(4), 0.1 * np.eye(2), rng.standard_normal(4)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa
+    At, Bt, Qt, Rt = t(A), t(Bm), t(Q), t(R)
+    solve = ilqr.make_solver(lambda x, u: At @ x + Bt @ u,
+                             lambda x, u: 0.5 * (x @ Qt @ x + u @ Rt @ u),
+                             lambda x: 0.5 * x @ Qt @ x,
+                             ilqr.ILQRConfig(iterations=3))
+    return solve, t(x0), torch.zeros((30, 2), device=dev), (A, Bm, Q, R, x0)
+
+
 def plan_launches(cfg):
     """NS launches of one plan: Q_uu at every step of every backward pass,
     and the SRBD inertia once."""
@@ -2214,22 +2246,13 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     loop and tests/test_force_plan_tracking.py's force-plan loop, each
     600 ticks through both kernels, gated as the tests."""
     from qppvm_tpu_torch.model import dynamics
-    from qppvm_tpu_torch.mpc import ilqr
 
     # (a) the LQR problem, float32 on the card
-    rng = np.random.default_rng(0)
-    A = np.eye(4) + 0.05 * rng.standard_normal((4, 4))
-    Bm = 0.1 * rng.standard_normal((4, 2))
-    Q, R, x0, H = np.eye(4), 0.1 * np.eye(2), rng.standard_normal(4), 30
-    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa
-    At, Bt, Qt, Rt = t(A), t(Bm), t(Q), t(R)
-    solve = ilqr.make_solver(lambda x, u: At @ x + Bt @ u,
-                             lambda x, u: 0.5 * (x @ Qt @ x + u @ Rt @ u),
-                             lambda x: 0.5 * x @ Qt @ x,
-                             ilqr.ILQRConfig(iterations=3))
+    solve, x0_t, U0, (A, Bm, Q, R, x0) = lqr_problem(torch, dev)
+    H = U0.shape[0]
     nsi.launches = 0
     dynamics.plain_inverses = 0
-    res = solve(t(x0), torch.zeros((H, 2), device=dev))
+    res = solve(x0_t, U0)
     torch.cuda.synchronize()
     lqr_ns = nsi.launches
     if (lqr_ns, dynamics.plain_inverses) != (H * 4, 0):
@@ -2257,45 +2280,48 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
             and gain_gap <= LQR_GAIN_REL * (1 + np.abs(Ks).max())):
         fail("ddp LQR: the plan misses the Riccati solution")
 
-    # one plan at the test's config, card against CPU
-    quad = zoo.quadruped(device=dev)
-    mpc, st, p_ref = ddp_planner(torch, quad, FEET, DDP_TEST)
-    cpu_mpc, cpu_st, cpu_ref = ddp_planner(
-        torch, zoo.quadruped(device="cpu"), FEET, DDP_TEST)
-    nsi.launches = 0
-    dynamics.plain_inverses = 0
-    res, _ = mpc.plan(st, p_ref, mpc.init_plan(st))
-    torch.cuda.synchronize()
-    plan_ns = nsi.launches
-    if (plan_ns, dynamics.plain_inverses) != (plan_launches(DDP_TEST), 0):
-        fail(f"ddp plan: {plan_ns} NS launches, "
-             f"{dynamics.plain_inverses} plain inverses, expected "
-             f"{plan_launches(DDP_TEST)} and 0")
-    ref, _ = cpu_mpc.plan(cpu_st, cpu_ref, cpu_mpc.init_plan(cpu_st))
-    gaps = []
-    for f, rel in DDP_PLAN_BARS:
-        a, b = getattr(res, f).cpu(), getattr(ref, f)
-        gap, scale = float((a - b).abs().max()), 1 + float(b.abs().max())
-        gaps.append(f"{f} {gap:.3g} (bar {rel * scale:.3g})")
-        if not gap <= rel * scale:
-            fail(f"ddp plan, card against CPU: {f} {gap:.3g} apart")
-    k_gap = float((res.k.cpu() - ref.k).abs().max())
-    k_bar = 1e-3 * (1 + float(ref.U.abs().max()))
-    if not k_gap <= k_bar:
-        fail(f"ddp plan, card against CPU: k {k_gap:.3g} apart")
-    print(f"ddp plan (quadruped, horizon {DDP_TEST['horizon']}, "
-          f"{DDP_TEST['iterations']} iterations), card against CPU: "
-          f"{', '.join(gaps)}, k {k_gap:.3g} (bar {k_bar:.3g}); {plan_ns} NS "
-          f"launches, 0 plain inverses; plan end z {float(res.X[-1, 2]):.4f} "
-          f"m, target {float(p_ref[2]):.4f}")
+    # one plan at the test's config on each robot, card against CPU
+    ns_by = {"ddp_lqr": lqr_ns}
+    for robot, contacts in (("quadruped", FEET), ("humanoid", CONTACTS)):
+        mpc, st, p_ref = ddp_planner(
+            torch, getattr(zoo, robot)(device=dev), contacts, DDP_TEST)
+        cpu_mpc, cpu_st, cpu_ref = ddp_planner(
+            torch, getattr(zoo, robot)(device="cpu"), contacts, DDP_TEST)
+        nsi.launches = 0
+        dynamics.plain_inverses = 0
+        res, _ = mpc.plan(st, p_ref, mpc.init_plan(st))
+        torch.cuda.synchronize()
+        plan_ns = nsi.launches
+        if (plan_ns, dynamics.plain_inverses) != (plan_launches(DDP_TEST),
+                                                  0):
+            fail(f"ddp plan ({robot}): {plan_ns} NS launches, "
+                 f"{dynamics.plain_inverses} plain inverses, expected "
+                 f"{plan_launches(DDP_TEST)} and 0")
+        ref, _ = cpu_mpc.plan(cpu_st, cpu_ref, cpu_mpc.init_plan(cpu_st))
+        gaps = []
+        for f, rel in DDP_PLAN_BARS:
+            a, b = getattr(res, f).cpu(), getattr(ref, f)
+            gap, scale = float((a - b).abs().max()), 1 + float(b.abs().max())
+            gaps.append(f"{f} {gap:.3g} (bar {rel * scale:.3g})")
+            if not gap <= rel * scale:
+                fail(f"ddp plan ({robot}), card against CPU: {f} {gap:.3g} "
+                     f"apart")
+        k_gap = float((res.k.cpu() - ref.k).abs().max())
+        k_bar = 1e-3 * (1 + float(ref.U.abs().max()))
+        if not k_gap <= k_bar:
+            fail(f"ddp plan ({robot}), card against CPU: k {k_gap:.3g} apart")
+        print(f"ddp plan ({robot}, horizon {DDP_TEST['horizon']}, "
+              f"{DDP_TEST['iterations']} iterations), card against CPU: "
+              f"{', '.join(gaps)}, k {k_gap:.3g} (bar {k_bar:.3g}); "
+              f"{plan_ns} NS launches, 0 plain inverses; plan end z "
+              f"{float(res.X[-1, 2]):.4f} m, target {float(p_ref[2]):.4f}")
+        ns_by[f"ddp_plan_test_config_{robot}"] = plan_ns
 
     # the planner's default config, timed
-    ns_by = {"ddp_lqr": lqr_ns, "ddp_plan_test_config": plan_ns}
     plan_ms = {}
-    for robot, model, contacts in (("quadruped", quad, FEET),
-                                   ("humanoid", zoo.humanoid(device=dev),
-                                    CONTACTS)):
-        mpc, st, p_ref = ddp_planner(torch, model, contacts, {})
+    for robot, contacts in (("quadruped", FEET), ("humanoid", CONTACTS)):
+        mpc, st, p_ref = ddp_planner(
+            torch, getattr(zoo, robot)(device=dev), contacts, {})
         res, _ = mpc.plan(st, p_ref, mpc.init_plan(st))
         nsi.launches = 0
         dynamics.plain_inverses = 0

@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from qppvm_tpu_torch import device as devices
 from qppvm_tpu_torch.model import dynamics
 
 NX = 12
@@ -62,13 +63,15 @@ def from_robot(model, data: dynamics.ModelData, contact_links, dt: float,
         dt=torch.as_tensor(dt, **kw))
 
 
-def init_state(com_pos, com_vel=None, dtype=torch.float32, device=None):
-    """x0 (12,) at ``com_pos`` with ``com_vel`` (default 0), at rest
-    otherwise."""
-    p = torch.as_tensor(com_pos, dtype=dtype, device=device)
+def init_state(com_pos, com_vel=None, dtype=torch.float32,
+               device=devices.DEFAULT):
+    """x0 (12,) on ``device`` at ``com_pos`` with ``com_vel`` (default 0),
+    at rest otherwise."""
+    kw = dict(dtype=dtype, device=devices.resolve(device))
+    p = torch.as_tensor(com_pos, **kw)
     v = (torch.zeros_like(p) if com_vel is None
-         else torch.as_tensor(com_vel, dtype=dtype, device=p.device))
-    return torch.cat([p, v, torch.zeros(6, dtype=dtype, device=p.device)])
+         else torch.as_tensor(com_vel, **kw))
+    return torch.cat([p, v, torch.zeros(6, **kw)])
 
 
 def inertia_inverse(params: CentroidalParams):
@@ -80,11 +83,9 @@ def inertia_inverse(params: CentroidalParams):
     return dynamics.mass_matrix_inverse(K, INERTIA_NS_ITERS)[0]
 
 
-def dynamics_step(params: CentroidalParams, x, u, Iinv=None):
+def dynamics_step(params: CentroidalParams, x, u, Iinv):
     """One semi-implicit Euler step of the SRBD model; ``Iinv`` the
-    inertia's inverse (``inertia_inverse``, computed here when omitted)."""
-    if Iinv is None:
-        Iinv = inertia_inverse(params)
+    inertia's inverse (``inertia_inverse``)."""
     p, v, th, w = x[0:3], x[3:6], x[6:9], x[9:12]
     f = u.reshape(params.nc, 3) * params.active[:, None]
     F = torch.sum(f, dim=0) + params.mass * params.gravity

@@ -55,11 +55,12 @@ the same updates on the CPU, one AsyncPlanner plan on its side stream
 against a synchronous plan from the same seed, and ``run.main`` on
 config 1.
 
-The centroidal DDP planner: the NS kernel at its two shapes (the SRBD
-inertia, n 3 at 16 iterations; Q_uu, n 12 at 22), the iLQR's Q_uu routing
-(float32 to the kernel, float64 to the plain NS, counted) on
-tests/test_ilqr.py's LQR problem, and one quadruped plan on the card
-against the same plan on the CPU.
+The centroidal DDP planner: the NS kernel at its shapes (the SRBD
+inertia, n 3 at 16 iterations; Q_uu at 22: the LQR problem's n 2, the
+humanoid's n 6, the quadruped's n 12), the iLQR's Q_uu routing (float32
+to the kernel, float64 to the plain NS, counted) on tests/test_ilqr.py's
+LQR problem, and one plan of each robot on the card against the same plan
+on the CPU.
 """
 import pytest
 import torch
@@ -225,8 +226,8 @@ def _ns_passes(K, X, ref):
     return close & (resid.amax(1) < 5e-3)
 
 
-@pytest.mark.parametrize("n,iters", [(1, 26), (3, 16), (7, 20), (7, 26),
-                                     (8, 26), (12, 22),
+@pytest.mark.parametrize("n,iters", [(1, 26), (2, 22), (3, 16), (6, 22),
+                                     (7, 20), (7, 26), (8, 26), (12, 22),
                                      (15, 20), (15, 24), (16, 24),
                                      (22, 24), (37, 24),
                                      (38, 24), (40, 26), (44, 24), (63, 26),
@@ -542,8 +543,11 @@ def test_ilqr_quu_routing(device, dtype):
             1 + float(want.abs().max())), f
 
 
-def test_ddp_plan_card_matches_cpu(device):
-    """One quadruped plan at tests/test_ddp_mpc.py's config (horizon 15, 4
+@pytest.mark.parametrize("robot,feet", [
+    ("quadruped", ("foot_fl", "foot_fr", "foot_hr", "foot_hl")),
+    ("humanoid", ("l_sole", "r_sole"))])
+def test_ddp_plan_card_matches_cpu(device, robot, feet):
+    """One plan at tests/test_ddp_mpc.py's config (horizon 15, 4
     iterations) in float32: 76 NS launches and no plain inverse on the
     card; the plan held to the CPU's (plain inverses) at chip_smoke.py's
     phase 15 bars."""
@@ -551,10 +555,9 @@ def test_ddp_plan_card_matches_cpu(device):
     from qppvm_tpu_torch.mpc.ddp_mpc import CentroidalMPC, CentroidalMPCConfig
     from qppvm_tpu_torch.runtime.robot_interface import standing_state
 
-    feet = ("foot_fl", "foot_fr", "foot_hr", "foot_hl")
     plans = {}
     for d in (device, torch.device("cpu")):
-        model = zoo.quadruped(device=d)
+        model = getattr(zoo, robot)(device=d)
         st = standing_state(model, feet)
         com0 = kinematics.com(model, kinematics.fk(model, st))[1][0]
         mpc = CentroidalMPC(model, feet, CentroidalMPCConfig(

@@ -148,7 +148,7 @@ def _centroidal_solver(side, case):
     if side == "torch":
         mod, lib, dt = centroidal, ilqr, F64
         p = _params(_srbd(), side, dt)
-        x0 = mod.init_state(torch.tensor(p0), dtype=dt)
+        x0 = mod.init_state(torch.tensor(p0), dtype=dt, device="cpu")
         zero = torch.zeros(12, dtype=dt)
         U0 = mod.gravity_feedforward(p)[None].repeat(H, 1)
     else:
@@ -158,7 +158,9 @@ def _centroidal_solver(side, case):
         zero = jnp.zeros(12, dt)
         U0 = jnp.tile(mod.gravity_feedforward(p)[None], (H, 1))
     cost = mod.standing_cost(p, p_ref=p_ref)
-    solve = lib.make_solver(lambda x, u: mod.dynamics_step(p, x, u), cost,
+    dyn = (partial(mod.dynamics_step, p, Iinv=mod.inertia_inverse(p))
+           if side == "torch" else partial(mod.dynamics_step, p))
+    solve = lib.make_solver(dyn, cost,
                             lambda x: final_w * cost(x, zero),
                             lib.ILQRConfig(iterations=iterations))
     return solve, x0, U0
@@ -271,11 +273,12 @@ def test_dynamics_step_and_cost_match_reference():
                                                 ("jax", jnp.float32)))
     cost = centroidal.standing_cost(p, torch.tensor([0.0, 0.05, 0.45]))
     jcost = jcentroidal.standing_cost(jp, jnp.asarray([0.0, 0.05, 0.45]))
+    Iinv = centroidal.inertia_inverse(p)
     for _ in range(4):
         x = rng.standard_normal(12).astype(np.float32)
         u = (100.0 * rng.standard_normal(12)).astype(np.float32)
         xt, ut = torch.tensor(x), torch.tensor(u)
-        _close(centroidal.dynamics_step(p, xt, ut).numpy(),
+        _close(centroidal.dynamics_step(p, xt, ut, Iinv).numpy(),
                jcentroidal.dynamics_step(jp, jnp.asarray(x), jnp.asarray(u)),
                1e-6)
         _close(cost(xt, ut).item(), float(jcost(jnp.asarray(x),
@@ -283,12 +286,27 @@ def test_dynamics_step_and_cost_match_reference():
     _close(centroidal.gravity_feedforward(p).numpy(),
            jcentroidal.gravity_feedforward(jp), 1e-6)
     x0 = centroidal.init_state(torch.tensor([0.0, 0.0, 0.5]),
-                               torch.tensor([0.1, 0.0, 0.0]))
+                               torch.tensor([0.1, 0.0, 0.0]), device="cpu")
     assert x0.dtype == torch.float32 and x0.shape == (centroidal.NX,)
     _close(x0.numpy(), jcentroidal.init_state(jnp.asarray([0.0, 0.0, 0.5]),
                                               jnp.asarray([0.1, 0.0, 0.0])),
            0.0)
     assert centroidal.nu(p) == jcentroidal.nu(jp) == 12
+
+
+def test_init_state_defaults_to_the_card():
+    """init_state puts x0 on ``device``, the card by default, whatever its
+    input: a list or an array never lands on the CPU unasked."""
+    for com in ([0.0, 0.0, 0.5], np.array([0.0, 0.0, 0.5]),
+                torch.tensor([0.0, 0.0, 0.5])):
+        x0 = centroidal.init_state(com, [0.1, 0.0, 0.0], device="cpu")
+        assert x0.device.type == "cpu" and x0.dtype == torch.float32
+        assert x0.tolist() == pytest.approx([0.0, 0.0, 0.5, 0.1] + [0.0] * 8)
+        if torch.cuda.is_available():
+            assert centroidal.init_state(com).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                centroidal.init_state(com)
 
 
 @pytest.mark.parametrize("robot", ["quadruped", "humanoid"])
@@ -386,11 +404,14 @@ def test_contact_gating_matches_reference():
     u = centroidal.gravity_feedforward(p)
     F = u.numpy().reshape(4, 3)
     assert F[0, 2] == 0.0 and abs(F[1:, 2].sum() - 40.0 * 9.81) < 1.0
-    x0 = centroidal.init_state(torch.tensor([0.0, 0.0, 0.5]), dtype=F64)
+    x0 = centroidal.init_state(torch.tensor([0.0, 0.0, 0.5]), dtype=F64,
+                               device="cpu")
     bump = torch.tensor([0.0, 0.0, 1000.0] + [0.0] * 9, dtype=F64)
-    x1a = centroidal.dynamics_step(p, x0, u)
-    torch.testing.assert_close(centroidal.dynamics_step(p, x0, u + bump), x1a,
-                               rtol=0.0, atol=1e-12)
+    Iinv = centroidal.inertia_inverse(p)
+    x1a = centroidal.dynamics_step(p, x0, u, Iinv)
+    torch.testing.assert_close(
+        centroidal.dynamics_step(p, x0, u + bump, Iinv), x1a, rtol=0.0,
+        atol=1e-12)
     jx1 = jcentroidal.dynamics_step(jp, jnp.asarray(x0.numpy()),
                                     jnp.asarray(u.numpy()))
     _close(x1a.numpy(), jx1, 1e-12)

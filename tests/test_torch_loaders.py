@@ -390,12 +390,12 @@ def test_load_urdf_lumps_fixed_joints(tmp_path):
 def test_load_mjcf_matches_reference(robot):
     """gymnasium's published ant.xml (with the feet's tip frames) and
     humanoid.xml, compiled by MuJoCo on both sides."""
-    mujoco = pytest.importorskip("mujoco")
+    pytest.importorskip("mujoco")
+    gymnasium = pytest.importorskip("gymnasium")
     from qppvm_tpu.model.mjcf import load_mjcf as jload_mjcf
     from qppvm_tpu_torch.model.mjcf import load_mjcf
-    path = os.path.abspath(os.path.join(
-        os.path.dirname(mujoco.__file__), "..", "gymnasium", "envs",
-        "mujoco", "assets", f"{robot}.xml"))
+    path = os.path.join(os.path.dirname(gymnasium.__file__), "envs",
+                        "mujoco", "assets", f"{robot}.xml")
     tips = robot == "ant"
     got = load_mjcf(path, tip_frames=tips, device="cpu")
     _close_models(got, jload_mjcf(path, tip_frames=tips))

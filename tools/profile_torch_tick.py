@@ -18,7 +18,10 @@ Then the same busy time and idle share for one unit of chip_smoke.py's
 footstep-recovery paths: a tick of the capture plugin's closed loop (B 1,
 from the standing state: the plugin's tick and the plant's 2 substeps), a
 step of the capture plan's candidate rollouts (K 4, 8 substeps) and a
-step-recovery MPPI plan (512 samples x 12 steps).
+step-recovery MPPI plan (512 samples x 12 steps); and for one centroidal
+DDP plan (chip_smoke.py's phase 15: the quadruped at the test's config,
+the quadruped and the humanoid at the default one), with the NS kernel's
+share of the busy time.
 """
 import statistics
 import sys
@@ -107,6 +110,7 @@ def main():
               f"{e.count / PROFILED_TICKS:6.0f} calls/tick "
               f"{ms / busy_ms:6.1%}")
     footstep_paths(torch, dev, card)
+    ddp_plans(torch, dev, card)
 
 
 def device_busy(torch, fn, runs):
@@ -190,6 +194,34 @@ def footstep_paths(torch, dev, card):
         print(f"[{card}] {label}: median {ms:.3f} ms (host clock), device "
               f"busy {busy:.3f} ms, {events:.0f} device events; idle share "
               f"{1.0 - busy / ms:.3f}")
+
+
+def ddp_plans(torch, dev, card):
+    """Busy time, idle share and the NS kernel's device time of one DDP
+    plan, warm-started from the previous plan, at chip_smoke.py's phase 15
+    configurations."""
+    from torch.autograd import DeviceType
+    from qppvm_tpu_torch.model import zoo
+
+    cs = chip_smoke
+    for robot, contacts, cfg, label in (
+            ("quadruped", cs.FEET, cs.DDP_TEST, "test config"),
+            ("quadruped", cs.FEET, {}, "default config"),
+            ("humanoid", cs.CONTACTS, {}, "default config")):
+        mpc, st, p_ref = cs.ddp_planner(
+            torch, getattr(zoo, robot)(device=dev), contacts, cfg)
+        U = mpc.init_plan(st)
+        plan = lambda: mpc.plan(st, p_ref, U)  # noqa: E731
+        ms = median_ms(torch, plan, reps=3)
+        rows, busy, events = device_busy(torch, plan, 2)
+        ns_ms = sum(e.self_device_time_total for e in rows
+                    if e.device_type != DeviceType.CPU
+                    and "ns_inverse_kernel" in e.key) / 1e3 / 2
+        print(f"[{card}] ddp plan, {robot}, {label} (horizon "
+              f"{mpc.cfg.horizon}, {mpc.cfg.iterations} iterations): median "
+              f"{ms:.3f} ms (host clock), device busy {busy:.3f} ms, "
+              f"{events:.0f} device events; idle share {1.0 - busy / ms:.3f};"
+              f" NS kernel {ns_ms:.3f} ms of the busy time")
 
 
 if __name__ == "__main__":
