@@ -165,12 +165,35 @@ Phases, each fatal on failure:
    tests/test_urdf.py's two-link arm on a floating base, every query on
    the card against the CPU; run.main on config 1 with the arm's URDF in
    place of zoo: arm7, 20 ticks.
+17. the multi-rank dryrun (qppvm_tpu_torch/dryrun.py, the counterpart of
+   __graft_entry__.py::dryrun_multichip): 4 gloo ranks of one process
+   group, all on the card, plan the humanoid's MPPI step with 64 samples
+   a rank at horizon 8 (pushes, mass and friction randomized), each rank
+   rolling its share out through the level kernel, on a 1-D mesh and on a
+   (2, 2) mesh, two plans each: solver_fail_frac 0, a finite cost, 16
+   level launches, 1 NS launch and 0 fallbacks a plan on every rank,
+   U_new bitwise the same on every rank and within 1e-4 (U) and 1e-3
+   relative (cost_mean) of the same plan in one process; each mesh's plan
+   ms;
+18. (a) ring_rollout (parallel/ring_horizon.py) on 4 ranks over the
+   quadruped's real rollout step through the level kernel, as
+   tests/test_ring_real_rollout.py: at sweeps = S the outputs and final
+   state match the sequential rollout (rtol 1e-5, atol 1e-6), the defect
+   is below 1e-5 and does not grow from 1 sweep to S, no QP step fails,
+   2 level launches a step on every rank; its ms at 1 and S sweeps;
+   (b) runtime/logger.py::scan_with_stream over the quadruped's closed
+   loop (tests/test_trace_stream.py's set-up, 64 ticks in chunks of 16):
+   every channel bitwise the per-tick dispatch's, one host copy a chunk,
+   one NS launch a tick (the plant); (c) bench_util's matrix-product FLOP
+   count of the humanoid's tick at B 1024 and of the 512 x 8 plan, equal
+   through the level kernel and the plain level solver, with its MFU.
 
 Phases 2 to 4 run alone, so their device times are the kernels' own. Then
-phases 9, 11 and 15, the longest host-bound loops, run in processes of
-their own (``python3 chip_smoke.py --phase capture`` / ``--phase qppvm`` /
-``--phase ddp``, which run that phase alone) beside phases 5 to 14 and 16
-in this one; each phase
+phases 9, 11 and 15, the longest host-bound loops, and phases 17 and
+18 (a), whose ranks are processes of their own, run in processes of their
+own (``python3 chip_smoke.py --phase capture`` / ``--phase qppvm`` /
+``--phase ddp`` / ``--phase parallel``, which run that phase alone) beside
+phases 5 to 14, 16 and 18 (b, c) in this one; each phase
 sets and reads the launch counts of its own process, and its output is
 printed when it ends.
 
@@ -260,7 +283,6 @@ LEAD_CYCLES = 20_000_000
 MPC_DRAWS = 3
 # one H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores,
 # dense TF32 on them, HBM3
-PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES_S = 67e12, 495e12, 3.35e12
 # bars on the NS kernel's time (ms) at each phase 4 shape, printed and not
 # gated: a slow kernel that is right stays
 NS_BARS_MS = (1.0, 0.107, 0.60) + (None,) * 8
@@ -335,8 +357,23 @@ QPPVM_SIM_TICKS, QPPVM_COMPARE = 200, 5
 # phases run in processes of their own, beside phases 5 to 14 in this one,
 # once phases 2 to 4 (the kernels' device times) are done: the two longest
 # host-bound loops; each ends by printing RESULT_TAG and its result
-SIDE_PHASES = ("capture", "qppvm", "ddp")
+SIDE_PHASES = ("capture", "qppvm", "ddp", "parallel")
 RESULT_TAG = "chip_smoke phase result: "
+# phase 17: qppvm_tpu_torch/dryrun.py on 4 gloo ranks of the card, two
+# plans a mesh (the first gated on its launches, the last timed), held to
+# the same plan in one process at tests/test_mpc_parallel.py:114-117's
+# bars; phase 18 (a): tests/test_ring_real_rollout.py's quadruped and
+# rollout (the level kernel at B 1) under ring_rollout on 4 ranks, held to
+# the sequential rollout at that test's bars
+PARALLEL_RANKS, DRYRUN_REPS = 4, 2
+DRYRUN_U_ATOL, DRYRUN_COST_RTOL = 1e-4, 1e-3
+RING_PLUGIN = dict(contact_links=("foot_fl", "foot_fr", "foot_hr", "foot_hl"),
+                   waist_link="pelvis", iters=20, use_friction_cones=True,
+                   mu=0.5, foot_tasks_6d=False)
+RING_ROLLOUT = dict(horizon=8, dt=0.01, qp_iters=12, qp_backend="kernel")
+RING_RTOL, RING_ATOL, RING_DEFECT = 1e-5, 1e-6, 1e-5
+# phase 18 (b): tests/test_trace_stream.py's loop, its T and CHUNK
+STREAM_TICKS, STREAM_CHUNK = 64, 16
 # phase 12: tests/test_gait_walk.py's quadruped (friction cones at mu 0.5,
 # switchable contacts, position-only feet tasks, iters 60) in the level
 # kernel's profile (rho_updates 0: the JAX package's first stride is as
@@ -539,37 +576,6 @@ def tick_times_ms(torch, plugin, states, refs, warm, reps=REPS):
     return times
 
 
-def bound_ms(flops, nbytes, peak=PEAK_F32_FLOPS):
-    """The least time for the work on one H100 at ``peak`` FLOP/s and what
-    bounds it."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def level_qp_cost(cfg, B, n, m):
-    """(flops, bytes) of one level-kernel launch, counted from the shapes
-    with every item on the warm branch of the NS guard (the least work):
-    the equality Gram inverse and pseudo-inverse refinement, the projected
-    KKT matrix, the guard product, the warm NS iterations, the ADMM
-    iterations and the final residuals; each input read once, each output
-    written once."""
-    ne = cfg.n_eq_head + cfg.n_eq_tail
-    mi = m - ne
-    elim = 0
-    if ne:
-        from qppvm_tpu_torch.opt.level_qp import GRAM_NS_ITERS
-        elim = (2 * ne * ne * n + 4 * GRAM_NS_ITERS * ne ** 3
-                + 2 * n * ne * ne + 4 * cfg.pinv_ns_iters * n * ne * ne
-                + 2 * n * n * ne + 4 * n ** 3)
-    flops = (elim + 2 * n * n * mi + 2 * n ** 3
-             + 4 * cfg.warm_kinv_iters * n ** 3
-             + cfg.iters * (4 * n * n + 4 * mi * n)
-             + 6 * n * n + 6 * mi * n + 4 * m * n)
-    words = (2 * n * n + m * n + 3 * n + 4 * m + 1) + (n * n + n + 2 * m + 4)
-    return B * flops, 4 * B * words
-
-
 def import_port():
     """The checkout's own qppvm_tpu_torch; exits when that is not what
     imports."""
@@ -683,6 +689,8 @@ def phase_robot_levels(torch, dev, card, parity, level_qp):
     ROBOT_SHAPES, B 1024 and B 1, cold then warm, in the RT profile (the
     QPPVM shapes in QPPVM_LEVEL's), timed with their bounds. Returns (max abs error, {(shape, B): (kernel ms,
     plain ms, bound ms, bound_by)})."""
+    from qppvm_tpu_torch.bench_util import bound_ms, level_qp_cost
+
     max_err, times = 0.0, {}
     for i, ((n, m, h, t), robot) in enumerate(ROBOT_SHAPES.items()):
         profile = (QPPVM_LEVEL if robot in QPPVM_ROBOTS
@@ -711,6 +719,8 @@ def phase_ns_inverse(torch, dev, card):
     """Phase 4: the NS-inverse path and the kernel against its plain
     version at the bench shape, the simulators' shapes and the QPPVM
     loops' (phase 11)."""
+    from qppvm_tpu_torch.bench_util import (PEAK_TF32_FLOPS, bound_ms,
+                                            ns_inverse_cost)
     from qppvm_tpu_torch.model import dynamics, zoo
     from qppvm_tpu_torch.mpc.rollout import standing_state
     from qppvm_tpu_torch.opt import ns_inverse as nsi
@@ -793,7 +803,7 @@ def phase_ns_inverse(torch, dev, card):
         times[label] = (k_ms, (p1 + p2) / 2, lib)
         # float32 products on the CUDA cores, or three TF32 products each
         # on the tensor cores; the share is of the lesser
-        flops, nbytes = 4 * len(Kc) * iters * n ** 3, 2 * Kc.numel() * 4
+        flops, nbytes = ns_inverse_cost(len(Kc), n, iters)
         f32 = bound_ms(flops, nbytes)
         tc = bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)
         bounds[label] = min(f32, tc)
@@ -2483,6 +2493,275 @@ def phase_loaders(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     return {"run_config1_urdf": nsi.launches}
 
 
+def _ring_rank(rank, n_ranks, device_type):
+    """One rank of phase 18 (a): the ring over the real rollout step at
+    sweeps None (= S), 1 and S, each timed, against the sequential rollout
+    run on this rank. Returns host values."""
+    import torch
+
+    from qppvm_tpu_torch.dryrun import rank_device
+    from qppvm_tpu_torch.model import zoo
+    from qppvm_tpu_torch.mpc.rollout import (RolloutConfig, default_cost,
+                                             make_rollout_fn, standing_state)
+    from qppvm_tpu_torch.opt import hierarchy, level_qp
+    from qppvm_tpu_torch.parallel import mesh as meshlib
+    from qppvm_tpu_torch.parallel.ring_horizon import ring_rollout
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+
+    dev = rank_device(rank, device_type)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    # tests/test_ring_real_rollout.py's set-up: the start carry, mild
+    # waist commands and pushes, the horizon fractions
+    plugin = ForceAccPlugin(zoo.quadruped(device=dev), **RING_PLUGIN)
+    st = standing_state(plugin.model, FEET)
+    refs, warm, _ = plugin.on_start(st)
+    rollout = make_rollout_fn(plugin, RolloutConfig(**RING_ROLLOUT),
+                              default_cost)
+    carry0 = rollout.init_carry(st, refs, warm)
+    H = RING_ROLLOUT["horizon"]
+    ones = torch.ones((H, 1, 3), device=dev)
+    U = (0.05 * ones, 5.0 * ones, None,
+         (torch.arange(H, dtype=torch.float32, device=dev) + 0.5) / H)
+    c, seq = carry0, []
+    sync()
+    t0 = time.perf_counter()
+    for t in range(H):
+        c, o = rollout.one_step(c, (U[0][t], U[1][t], None, U[3][t]))
+        seq.append(o)
+    sync()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    L = H // n_ranks
+    seg = seq[rank * L:(rank + 1) * L]
+    mesh = meshlib.make_mesh(n_ranks, axis="seg")
+    out = {}
+    for sweeps in (None, 1, n_ranks):
+        level_qp.launches = hierarchy.fallbacks = 0
+        sync()
+        t0 = time.perf_counter()
+        final, outs, info = ring_rollout(rollout.one_step, carry0, U, mesh,
+                                         sweeps=sweeps)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[sweeps] = {
+            "ms": ms, "defect": float(info.defect),
+            "launches": (level_qp.launches, hierarchy.fallbacks),
+            # cost and prim_res of each step against the sequential ones
+            "outs_err": max(float((a - torch.stack(b)).abs().max())
+                            for a, b in zip(outs[:2], list(zip(*seg))[:2])),
+            "outs_scale": max(float(torch.stack(b).abs().max())
+                              for b in list(zip(*seg))[:2]),
+            "q_err": float((final[0].q - c[0].q).abs().max()),
+            "fails": bool(outs[2].any()) or bool(
+                torch.stack([o[2] for o in seq]).any())}
+    return {"sweeps": out, "seq_ms": seq_ms}
+
+
+def phase_parallel(torch, dev, card, hierarchy, level_qp, nsi):
+    """Phase 17: the multi-rank dryrun (qppvm_tpu_torch/dryrun.py) on 4
+    gloo ranks on the card, 1-D and (2, 2) meshes, held to the same plan in
+    one process; phase 18 (a): the ring over the real rollout step on 4
+    ranks."""
+    from qppvm_tpu_torch import dryrun
+    from qppvm_tpu_torch.parallel import mesh as meshlib
+
+    n = PARALLEL_RANKS
+    H = dryrun.HORIZON
+    t0 = time.perf_counter()
+    results = dryrun.dryrun_multichip(n, dev, reps=DRYRUN_REPS)
+    print(f"phase 17: {n} ranks spawned and planned in "
+          f"{time.perf_counter() - t0:.1f} s")
+    U1, info1, counts1, ms1 = dryrun.plan_step(dryrun.SAMPLES_PER_RANK * n,
+                                               dev)
+    U1 = U1.cpu().numpy()
+    _, _, _, ms1b = dryrun.plan_step(dryrun.SAMPLES_PER_RANK * n, dev)
+    if counts1 != (2 * H, 1, 0):
+        fail(f"dryrun single-process plan: (level, NS, fallbacks) launches "
+             f"{counts1}, expected {(2 * H, 1, 0)}")
+    launches = {}
+    for tag, per_rank in results.items():
+        for r, res in enumerate(per_rank):
+            if tuple(res["counts"]) != (2 * H, 1, 0):
+                fail(f"dryrun [{tag}] rank {r}: (level, NS, fallbacks) "
+                     f"launches {res['counts']} a plan, expected "
+                     f"{(2 * H, 1, 0)}")
+        res = per_rank[0]
+        u_err = float(np.abs(res["U_new"] - U1).max())
+        c_rel = abs(res["cost_mean"] - float(info1["cost_mean"])) / abs(
+            float(info1["cost_mean"]))
+        print(f"dryrun [{tag}]: U_new bitwise equal on {n} ranks; against "
+              f"the same plan in one process: U max abs diff {u_err:.3g} "
+              f"(atol {DRYRUN_U_ATOL}), cost_mean rel diff {c_rel:.3g} "
+              f"(rtol {DRYRUN_COST_RTOL}); (level, NS, fallbacks) launches "
+              f"a plan on each rank {res['counts']}")
+        if not (u_err <= DRYRUN_U_ATOL and c_rel <= DRYRUN_COST_RTOL):
+            fail(f"dryrun [{tag}]: the sharded plan is not the one-process "
+                 "plan")
+        plan_ms = ", ".join(f"{r['ms'][-1]:.3f}" for r in per_rank)
+        first_ms = ", ".join(f"{r['ms'][0]:.3f}" for r in per_rank)
+        print(f"[{card}] dryrun [{tag}]: {dryrun.SAMPLES_PER_RANK * n} "
+              f"samples x {H} steps on {n} gloo ranks of one card: plan "
+              f"{max(r['ms'][-1] for r in per_rank):.3f} ms (slowest rank; "
+              f"ranks {plan_ms}; first plans {first_ms})")
+        launches[f"dryrun_{tag.split()[0]}_plan_per_rank"] = \
+            res["counts"][0]
+    print(f"[{card}] dryrun: the same plan in one process: "
+          f"{ms1b:.3f} ms (first {ms1:.3f})")
+    ns = {f"dryrun_{t.split()[0]}_plan_per_rank": per_rank[0]["counts"][1]
+          for t, per_rank in results.items()}
+
+    # ---- 18 (a). the ring over the real rollout step ----------------------
+    ranks = meshlib.run_ranks(_ring_rank, n, (n, dev.type), timeout_s=600.0,
+                              group_timeout_s=120.0)
+    S, H_ring = n, RING_ROLLOUT["horizon"]
+    sw = [r["sweeps"] for r in ranks]
+    for r, res in enumerate(sw):
+        for sweeps, v in res.items():
+            # a scan of H / S steps a sweep, 2 level launches a step
+            want = 2 * (S if sweeps is None else sweeps) * H_ring // S
+            if tuple(v["launches"]) != (want, 0):
+                fail(f"ring rank {r} sweeps {sweeps}: (level, fallbacks) "
+                     f"{v['launches']}, expected ({want}, 0)")
+            if v["fails"]:
+                fail(f"ring rank {r} sweeps {sweeps}: a failed QP step")
+        exact = res[None]
+        if not (exact["outs_err"] <= RING_ATOL + RING_RTOL
+                * exact["outs_scale"] and exact["defect"] < RING_DEFECT
+                and exact["q_err"] <= RING_ATOL + RING_RTOL):
+            fail(f"ring rank {r}: sweeps=S is not the sequential rollout "
+                 f"(outputs {exact['outs_err']:.3g}, defect "
+                 f"{exact['defect']:.3g}, final q {exact['q_err']:.3g})")
+        if not res[S]["defect"] < RING_DEFECT or \
+                res[1]["defect"] < res[S]["defect"]:
+            fail(f"ring rank {r}: defects {res[1]['defect']:.3g} (1 sweep) "
+                 f"and {res[S]['defect']:.3g} ({S})")
+    print(f"ring over the real rollout step (quadruped, cones, horizon "
+          f"{H_ring}, {S} segments of {H_ring // S}, level kernel at B 1): "
+          f"sweeps=S outputs max abs diff "
+          f"{max(r[None]['outs_err'] for r in sw):.3g} from the sequential "
+          f"rollout, final q {max(r[None]['q_err'] for r in sw):.3g}, "
+          f"defect {sw[0][None]['defect']:.3g}; defect 1 sweep "
+          f"{sw[0][1]['defect']:.3g}, {S} sweeps {sw[0][S]['defect']:.3g}; "
+          f"{2 * H_ring} level launches a rank at sweeps=S, 0 fallbacks")
+    slowest = {k: max(r[k]["ms"] for r in sw) for k in (1, S)}
+    print(f"[{card}] ring: 1 sweep {slowest[1]:.3f} ms, {S} sweeps "
+          f"{slowest[S]:.3f} ms (slowest rank), {slowest[S] / S:.3f} ms a "
+          f"sweep; the {H_ring}-step rollout in one rank "
+          f"{max(r['seq_ms'] for r in ranks):.3f} ms")
+    launches["ring_real_rollout_per_rank_sweeps_s"] = 2 * H_ring
+    return {"levels": launches, "ns": ns}
+
+
+def phase_stream(torch, dev, card, hierarchy, level_qp, nsi, zoo):
+    """Phase 18 (b): scan_with_stream over the quadruped's closed-loop
+    tick (tests/test_trace_stream.py's set-up) against the same ticks
+    dispatched one by one with host-side adds."""
+    import tempfile
+
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+    from qppvm_tpu_torch.runtime import logger
+    from qppvm_tpu_torch.runtime import robot_interface as ri
+
+    model = zoo.quadruped(device=dev)
+    plugin = ForceAccPlugin(model, contact_links=FEET, waist_link="pelvis",
+                            iters=15, use_friction_cones=True, mu=0.5,
+                            foot_tasks_6d=False)
+    robot = ri.SimRobot(model, state=ri.standing_state(model, FEET),
+                        dt=1e-3, substeps=1, contact_links=FEET)
+    refs, warm, _ = plugin.on_start(robot.state)
+    zk = torch.zeros(model.nj, device=dev)
+
+    def tick(carry, _):
+        st, anchors, w = carry
+        tau, w, aux = plugin._step_impl(st, refs, w)
+        st, anchors = robot._step(st, anchors, tau, st.q, zk, zk)
+        return (st, anchors, w), {
+            "tau_qp": tau[0], "prim_res": aux.prim_res[0],
+            "fz": aux.wrenches[0, :, 2], "base_z": st.base_pos[0, 2]}
+
+    carry0 = (robot.state, robot._anchors, warm)
+    with tempfile.TemporaryDirectory() as tmp:
+        streamed = logger.TraceBuffer(f"{tmp}/dev", capacity=STREAM_TICKS)
+        logger.host_copies = 0
+        nsi.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry_s = logger.scan_with_stream(tick, carry0, STREAM_TICKS,
+                                          streamed, chunk=STREAM_CHUNK)
+        torch.cuda.synchronize()
+        ms_s = (time.perf_counter() - t0) / STREAM_TICKS * 1e3
+        copies, ns_launches = logger.host_copies, nsi.launches
+        host = logger.TraceBuffer(f"{tmp}/host", capacity=STREAM_TICKS)
+        c = carry0
+        t0 = time.perf_counter()
+        for _ in range(STREAM_TICKS):
+            c, ch = tick(c, None)
+            for k, v in ch.items():
+                host.add(k, v)
+        ms_h = (time.perf_counter() - t0) / STREAM_TICKS * 1e3
+        got, want = streamed.data(), host.data()
+    if copies != STREAM_TICKS // STREAM_CHUNK:
+        fail(f"stream: {copies} host copies, expected "
+             f"{STREAM_TICKS // STREAM_CHUNK}")
+    if ns_launches != STREAM_TICKS:
+        fail(f"stream: {ns_launches} NS launches, expected {STREAM_TICKS}")
+    if sorted(got) != sorted(want) or not all(
+            np.array_equal(got[k], want[k]) for k in want):
+        fail("stream: the streamed channels differ from the per-tick ones")
+    if not torch.equal(carry_s[0].q, c[0].q):
+        fail("stream: the streamed loop's state differs")
+    if not float(np.max(got["prim_res"])) < plugin.RT_FAIL_TOL:
+        fail(f"stream: prim_res up to {float(np.max(got['prim_res']))}")
+    print(f"stream: {STREAM_TICKS} ticks of the quadruped's closed loop "
+          f"in {copies} host copies of {STREAM_CHUNK} ticks, every channel "
+          f"bitwise the per-tick dispatch's; {ns_launches} NS launches")
+    print(f"[{card}] stream: {ms_s:.3f} ms a tick streamed, {ms_h:.3f} ms "
+          "a tick with a host add a channel")
+    return {"levels": 0, "ns": ns_launches}
+
+
+def phase_flops(torch, dev, card, hierarchy, level_qp, nsi, zoo):
+    """Phase 18 (c): bench_util's FLOP count and MFU of the humanoid tick
+    at B 1024 and of the 512 x 8 plan, the count the same through the
+    level kernel and the plain level solver."""
+    from qppvm_tpu_torch import bench_util
+    from qppvm_tpu_torch.mpc.humanoid_plan import (HORIZON, N_SAMPLES,
+                                                   humanoid_plan)
+
+    name = torch.cuda.get_device_name(dev)
+    plugins, states, refs_b, warm_b = main_path_inputs(
+        torch, dev, zoo.humanoid(device=dev), CONTACTS)
+    counts = {b: bench_util.matmul_flops(plugins[b]._step_impl, states,
+                                         refs_b, warm_b) for b in BACKENDS}
+    if counts["kernel"] != counts["torch"]:
+        fail(f"FLOP count of the tick: {counts}")
+    tick_ms = statistics.median(tick_times_ms(
+        torch, plugins["kernel"], states, refs_b, warm_b))
+    plans = {b: humanoid_plan(b, device=dev) for b in BACKENDS}
+    g = torch.Generator(device=dev).manual_seed(0)
+    U0 = plans["kernel"].mpc.init_plan()
+    pcounts = {b: bench_util.matmul_flops(p.plan, g, U0)
+               for b, p in plans.items()}
+    if pcounts["kernel"] != pcounts["torch"]:
+        fail(f"FLOP count of the plan: {pcounts}")
+    plans["kernel"].plan(g, U0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MPC_REPS):
+        plans["kernel"].plan(g, U0)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) / MPC_REPS * 1e3
+    for label, flops, ms in (
+            (f"humanoid tick B={B}", counts["kernel"], tick_ms),
+            (f"MPC plan {N_SAMPLES} x {HORIZON}", pcounts["kernel"],
+             plan_ms)):
+        print(f"[{card}] FLOPs ({label}): {flops:.6g} matrix-product FLOPs "
+              f"(equal through the level kernel and the plain level "
+              f"solver), {ms:.3f} ms, {flops / ms / 1e9:.4g} TFLOP/s, MFU "
+              f"{bench_util.mfu(flops, ms / 1e3, name):.4g} of "
+              f"{bench_util.peak_flops(name):.3g} FLOP/s float32")
+    return {"tick_flops": counts["kernel"], "plan_flops": pcounts["kernel"]}
+
+
 def start_side_phase(name):
     """Start phase ``name`` in a process of its own (``--phase name``),
     its output to a temporary file; returns (process, file)."""
@@ -2524,7 +2803,7 @@ def main():
     dev = torch.device("cuda", 0)
     card = card_line()
     args = (torch, dev, card, hierarchy, level_qp, ns_inverse)
-    # phases 5 to 14, each with its result's name
+    # phases 5 to 18, each with its result's name
     phases = {
         "loop": lambda: phase_closed_loop(*args),
         "mpc": lambda: phase_mpc(*args),
@@ -2537,7 +2816,10 @@ def main():
         "async": lambda: phase_async(*args, zoo),
         "entry": lambda: phase_entry(*args, zoo),
         "ddp": lambda: phase_ddp(*args, zoo),
-        "loaders": lambda: phase_loaders(*args, zoo)}
+        "loaders": lambda: phase_loaders(*args, zoo),
+        "parallel": lambda: phase_parallel(*args),
+        "stream": lambda: phase_stream(*args, zoo),
+        "flops": lambda: phase_flops(*args, zoo)}
     if sys.argv[1:2] == ["--phase"]:    # one phase in a process of its own
         for m in (level_qp, ns_inverse):   # loaded, or built, before timing
             m.library()
@@ -2588,6 +2870,7 @@ def main():
 
 def phase_levels(torch, dev, card, parity, level_qp):
     """Phase 2: the level kernel against its plain version, timed."""
+    from qppvm_tpu_torch.bench_util import bound_ms, level_qp_cost
     from qppvm_tpu_torch.mpc.humanoid_plan import N_SAMPLES
 
     # ---- 2. level kernel vs plain version ----------------------------------
@@ -2680,6 +2963,8 @@ def phase_main_path(torch, dev, card, hierarchy, level_qp, zoo):
 def print_kernels_line(torch, run):
     """The kernels JSON line from every phase's results, then the last
     line."""
+    from qppvm_tpu_torch.bench_util import bound_ms
+
     max_err, level_ms = run["max_err"], run["level_ms"]
     level_bound, level_ms_b1 = run["level_bound"], run["level_ms_b1"]
     level_ms_rollout = run["level_ms_rollout"]
@@ -2705,7 +2990,9 @@ def print_kernels_line(torch, run):
                                   **qppvm_ns,
                                   "walk_stride_b1": walk_ns,
                                   "async_loop_b1_and_plans": async_ns,
-                                  **entry_ns, **ddp_ns, **run["loaders"]}
+                                  **entry_ns, **ddp_ns, **run["loaders"],
+                                  **run["parallel"]["ns"],
+                                  "stream_loop_b1": run["stream"]["ns"]}
 
     b_ms, b_by = bound_ms(sum(f for f, _ in level_bound),
                           sum(b for _, b in level_bound))
@@ -2732,7 +3019,8 @@ def print_kernels_line(torch, run):
                              **qppvm_levels,
                              "walk_stride_b1": walk_levels,
                              "async_plans_b512": async_levels,
-                             **entry_levels, **ddp_levels}},
+                             **entry_levels, **ddp_levels,
+                             **run["parallel"]["levels"]}},
         ns_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

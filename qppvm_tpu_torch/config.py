@@ -8,11 +8,9 @@ the MPC layer. The five BASELINE configurations ship as
 
 Build chain: ScenarioConfig -> build_scenario(cfg, device) -> (model,
 plugin, robot) for ``runtime.plugin.ControlLoop``, or build_mpc for
-``mpc.sampling.SamplingMPC`` or ``mpc.ddp_mpc.CentroidalMPC``. The model is
-built on ``device``, the card by default, and the rest on the model's
-device. One card: the reference's
-device mesh (``mpc.mesh_axis``) has no counterpart yet (ROADMAP queue 1
-item 8).
+``mpc.sampling.SamplingMPC`` (its samples sharded over a mesh of ranks
+when one is given) or ``mpc.ddp_mpc.CentroidalMPC``. The model is built on
+``device``, the card by default, and the rest on the model's device.
 """
 from __future__ import annotations
 
@@ -111,7 +109,7 @@ class MPCConfig:
     step_recovery: bool = False
     lambda_: float = 1.0
     qp_iters: int = 10
-    mesh_axis: str = "rollout"         # the reference's mesh; one card here
+    mesh_axis: str = "rollout"         # the samples' axis of a mesh of ranks
 
 
 @dataclasses.dataclass
@@ -213,11 +211,11 @@ def build_sim(cfg: ScenarioConfig, model):
         mu=cfg.sim.mu, contact_offsets=cfg.sim.contact_offsets or None)
 
 
-def build_mpc(cfg: ScenarioConfig, plugin):
+def build_mpc(cfg: ScenarioConfig, plugin, mesh=None):
     """The scenario's planner on the plugin's device: the centroidal iLQR
     (``mpc.type: ilqr``), else sampling MPC with its rollouts' levels
-    through the level kernel (its plain version on CPU tensors). One card:
-    no mesh (ROADMAP queue 1 item 8)."""
+    through the level kernel (its plain version on CPU tensors), its
+    samples sharded over ``mesh`` (parallel/mesh.py) when one is given."""
     if not cfg.mpc.enabled:
         raise ValueError(f"scenario {cfg.name!r} has no mpc section enabled")
     m = cfg.mpc
@@ -237,7 +235,7 @@ def build_mpc(cfg: ScenarioConfig, plugin):
                       lambda_=m.lambda_)
     rcfg = RolloutConfig(horizon=m.horizon, qp_iters=m.qp_iters,
                          qp_backend="kernel")
-    return SamplingMPC(plugin, mppi, rcfg)
+    return SamplingMPC(plugin, mppi, rcfg, mesh=mesh)
 
 
 def build_scenario(cfg: ScenarioConfig, device=devices.DEFAULT):

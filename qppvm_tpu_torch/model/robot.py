@@ -93,6 +93,10 @@ class RobotModel:
                         np.asarray(p, float))
         return None
 
+    def is_frame(self, name: str) -> bool:
+        """Whether ``name`` is an extra frame (not a link)."""
+        return any(f[0] == name for f in self.frames)
+
     def ancestor_mask(self) -> np.ndarray:
         """(nj, nj) bool; m[l, j] = joint j is on the path root -> link l."""
         m = np.zeros((self.nj, self.nj), dtype=bool)
@@ -147,6 +151,11 @@ class RobotState:
     def u(self) -> torch.Tensor:
         """Generalized velocity [base_twist(6); qd] (floating models)."""
         return torch.cat([self.base_vel, self.qd], dim=-1)
+
+    def astype(self, dtype) -> "RobotState":
+        """The state with every field in ``dtype``."""
+        return RobotState(**{f.name: getattr(self, f.name).to(dtype)
+                             for f in dataclasses.fields(self)})
 
 
 def build_model(*, parent, joint_type, axis, E_tree, p_tree, mass, com,

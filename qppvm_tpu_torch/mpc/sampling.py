@@ -1,5 +1,5 @@
 """Sampling MPC (MPPI) over batched WBC rollouts (port of
-qppvm_tpu/mpc/sampling.py, one device, no mesh).
+qppvm_tpu/mpc/sampling.py).
 
 ``SamplingMPC.sample`` draws the perturbed plans, the domain
 randomization and, with ``step_recovery``, the footstep decisions theta
@@ -7,8 +7,15 @@ from an explicit ``torch.Generator``; ``update`` rolls every sample out
 (the sample axis is the rollouts' batch) and takes the MPPI average. The
 two are separate so that callers, the tests among them, can feed the
 update samples drawn elsewhere. Every reduction over samples (min, softmax
-weights, argmin) is over the leading axis. The reference's mesh sharding
-has no counterpart on one card.
+weights, argmin) is over the leading axis.
+
+With a ``mesh`` (parallel/mesh.py) every rank draws the whole sample set
+from its generator, seeded alike on every rank, exactly as the unsharded
+plan draws it; keeps its K / world share, the sample axis split over all
+mesh axes flattened row-major (the reference's P(mesh.axis_names)); rolls
+the share out as one batch, so the level kernel sees K / world problems a
+launch; and all-gathers the (K,) costs and health, so that every rank
+takes the same MPPI average and holds the same U_new.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from qppvm_tpu_torch.mpc.rollout import (THETA_KEYS, RolloutConfig,
                                          default_cost, make_rollout_fn,
                                          make_swing_primitive)
 from qppvm_tpu_torch.opt.qp import QPState
+from qppvm_tpu_torch.parallel import mesh as meshlib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,9 +76,16 @@ class SamplingMPC:
 
     def __init__(self, plugin, mppi: MPPIConfig,
                  rollout_cfg: Optional[RolloutConfig] = None,
-                 cost_fn=default_cost, contact_offsets=None):
+                 mesh=None, cost_fn=default_cost, contact_offsets=None):
+        """``mesh``: a DeviceMesh over which the samples are sharded
+        (None: every sample on this process); n_samples must divide over
+        its ranks."""
+        if mesh is not None and mppi.n_samples % mesh.size():
+            raise ValueError(f"{mppi.n_samples} samples do not divide over "
+                             f"the mesh's {mesh.size()} ranks")
         self.plugin = plugin
         self.mppi = mppi
+        self.mesh = mesh
         self.rcfg = rollout_cfg or RolloutConfig(horizon=mppi.horizon)
         self.swing, self.init_theta = None, None
         if mppi.step_recovery:
@@ -112,16 +127,23 @@ class SamplingMPC:
     def update(self, state, refs, warm, U, scenario, theta=None):
         """The MPPI update from given samples: ``state``/``refs``/``warm``
         of batch 1, ``U`` (K, H, nu), ``scenario`` as the rollout takes it,
-        ``theta`` the sampled footstep decisions (step_recovery). Returns
+        ``theta`` the sampled footstep decisions (step_recovery); with a
+        mesh each rank rolls out its share and the rest is gathered. Returns
         (U_new (H, nu), info), or ((U_new, theta_new), info) with theta;
         info stays on the device, its ``costs`` (K,) holds each sample's
         cost, failure penalty included, and with theta its
         ``theta_best`` the best sample's decision."""
         m = self.mppi
-        K = U.shape[0]
-        st, rf, w = expand_batch(state, refs, warm, K)
-        costs, health = self.rollout(st, rf, w, U, scenario, theta)
-        failed = health["solver_failed"]
+        U_loc, scen_loc, theta_loc = U, scenario, theta
+        if self.mesh is not None:
+            U_loc, scen_loc, theta_loc = meshlib.shard_batch(
+                (U, scenario, theta), self.mesh, self.mesh.mesh_dim_names)
+        st, rf, w = expand_batch(state, refs, warm, U_loc.shape[0])
+        costs, health = self.rollout(st, rf, w, U_loc, scen_loc, theta_loc)
+        failed, prim = health["solver_failed"], health["prim_res_max"]
+        if self.mesh is not None:
+            costs, failed, prim = (meshlib.all_gather_batch(a, self.mesh)
+                                   for a in (costs, failed, prim))
         costs = torch.where(torch.isfinite(costs), costs,
                             torch.full_like(costs, m.fail_penalty))
         costs = costs + m.fail_penalty * failed.to(costs.dtype)
@@ -135,7 +157,7 @@ class SamplingMPC:
             "cost_mean": torch.mean(costs),
             "ess": 1.0 / torch.sum(wts ** 2),
             "solver_fail_frac": torch.mean(failed.to(costs.dtype)),
-            "prim_res_max": torch.amax(health["prim_res_max"]),
+            "prim_res_max": torch.amax(prim),
             "U_best": U[best],
             "best_failed": failed[best],
             "solver_failed": failed,

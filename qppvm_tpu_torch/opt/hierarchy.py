@@ -22,6 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from qppvm_tpu_torch import bench_util
 from qppvm_tpu_torch.opt import level_qp, pdip, qp
 
 # Levels that backend "kernel" ran through qp.solve because
@@ -74,9 +75,7 @@ def _solve_level(prob: qp.QPProblem, st: Optional[qp.QPState], opts: dict,
         z = torch.clamp((prob.A @ x[..., None])[..., 0], prob.l, prob.u)
         return x, dataclasses.replace(st, x=x, z=z), info
     opts.pop("pdip_iters")
-    if backend == "torch":
-        return qp.solve(prob, st, **opts)
-    if backend != "kernel":
+    if backend not in ("torch", "kernel"):
         raise ValueError(f"unknown backend {backend!r}")
     h, t = opts.get("n_eq_head", 0), opts.get("n_eq_tail", 0)
     cfg = None
@@ -84,8 +83,15 @@ def _solve_level(prob: qp.QPProblem, st: Optional[qp.QPState], opts: dict,
         cfg = level_qp.config_from_opts(opts, n_eq_head=h, n_eq_tail=t,
                                         iters=opts["iters"])
     if cfg is None:
-        fallbacks += 1
+        if backend == "kernel":
+            fallbacks += 1
         return qp.solve(prob, st, **opts)
+    if backend == "torch":
+        # the level kernel's function: a FLOP count reads it at the
+        # kernel's declared cost, as it reads the kernel
+        with bench_util.declared(bench_util.level_qp_cost, cfg,
+                                 *prob.q.shape, prob.A.shape[1]):
+            return qp.solve(prob, st, **opts)
     x, z, y, K, r, prim, dual, obj = level_qp.solve_level(
         cfg, prob.P, prob.q, prob.A, prob.l, prob.u, st.x, st.z, st.y,
         st.Kinv, st.rho_scale)

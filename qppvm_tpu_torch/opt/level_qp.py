@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from qppvm_tpu_torch import bench_util
 from qppvm_tpu_torch.opt import qp
 
 # Newton-Schulz iterations of the equality Gram inverse: linalg.spd_inverse's
@@ -180,10 +181,14 @@ def _launch(cfg: LevelQPConfig, P, q, A, l, u, wx, wz, wy, wK, wr):
 def solve_level(cfg: LevelQPConfig, P, q, A, l, u, wx, wz, wy, wK, wr):
     """Solve one level for the whole batch (same signature and outputs as
     ``solve_level_reference``): the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors; anything else raises."""
+    version for CPU tensors; anything else raises. Either route counts at
+    the kernel's declared cost in ``bench_util.matmul_flops``."""
     _check_profile(cfg, P.shape[-1], A.shape[1])
-    if P.device.type == "cuda":
-        return _launch(cfg, P, q, A, l, u, wx, wz, wy, wK, wr)
-    if P.device.type == "cpu":
-        return solve_level_reference(cfg, P, q, A, l, u, wx, wz, wy, wK, wr)
+    with bench_util.declared(bench_util.level_qp_cost, cfg, *P.shape[:2],
+                             A.shape[1]):
+        if P.device.type == "cuda":
+            return _launch(cfg, P, q, A, l, u, wx, wz, wy, wK, wr)
+        if P.device.type == "cpu":
+            return solve_level_reference(cfg, P, q, A, l, u, wx, wz, wy, wK,
+                                         wr)
     raise ValueError(f"no level solver for device {P.device}")

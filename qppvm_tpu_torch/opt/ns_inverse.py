@@ -15,6 +15,7 @@ import ctypes
 
 import torch
 
+from qppvm_tpu_torch import bench_util
 from qppvm_tpu_torch.opt import linalg
 
 # Shared memory a block may use on Hopper (227 KB).
@@ -77,9 +78,13 @@ def _launch(K, iters: int):
 
 def ns_inverse(K, iters: int = 26):
     """Inverse of each SPD matrix of K (B, n, n): the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor; anything else raises."""
-    if K.device.type == "cuda":
-        return _launch(K, iters)
-    if K.device.type == "cpu":
-        return ns_inverse_reference(K, iters)
+    tensor, the plain version for a CPU tensor; anything else raises.
+    Either route counts at the kernel's declared cost in
+    ``bench_util.matmul_flops``."""
+    with bench_util.declared(bench_util.ns_inverse_cost, *K.shape[:2],
+                             iters):
+        if K.device.type == "cuda":
+            return _launch(K, iters)
+        if K.device.type == "cpu":
+            return ns_inverse_reference(K, iters)
     raise ValueError(f"no NS inverse for device {K.device}")

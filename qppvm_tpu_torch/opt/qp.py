@@ -355,3 +355,10 @@ def _polish_accept(P, q, A, l, u, x, y, x_p, y_p):
     dual_new = torch.amax(torch.abs(_mv(P, x_p) + q + _mtv(A, y_p)), dim=-1)
     return (feas & (dual_new <= dual_old + 1e-12)
             & torch.isfinite(x_p).all(-1))
+
+
+def solve_batch(problems: QPProblem, states: Optional[QPState] = None, **kw):
+    """The reference's ``vmap`` of ``solve`` over a leading batch axis.
+    ``solve`` is batch-first already, so this is ``solve``: kept so that
+    callers of the reference find it."""
+    return solve(problems, states, **kw)

@@ -6,6 +6,11 @@ either a closed-loop control session (ControlLoop at the scenario's dt) or,
 for an MPC scenario, sampling-MPC plan steps. Runs on the CUDA card, or on
 the CPU with ``--cpu``; prints one JSON line, which names the device.
 
+Under ``torchrun --nproc_per_node N`` the N processes join one process
+group (NCCL with a card each, gloo otherwise) and an MPC scenario shards
+its samples over a 1-D mesh on ``mpc.mesh_axis``; rank 0 prints the line,
+whose ``devices`` is the number of ranks.
+
 ``mpc.type: ilqr`` raises TypeError at ``init_plan``, as the reference's
 runner does: it drives every planner with the sampling planner's calls,
 and ``CentroidalMPC.init_plan`` needs the state.
@@ -33,10 +38,29 @@ def main(argv=None):
                     help="override mpc.horizon")
     args = ap.parse_args(argv)
 
-    import torch
+    import os
+
+    import torch.distributed as dist
 
     from qppvm_tpu_torch import config as cfgmod
     from qppvm_tpu_torch import device as devices
+    from qppvm_tpu_torch.parallel import mesh as meshlib
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))   # set by torchrun
+    if world > 1:
+        meshlib.initialize_distributed(None, world,
+                                       int(os.environ["RANK"]))
+    try:
+        out = _run(args, cfgmod, devices)
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+    return out
+
+
+def _run(args, cfgmod, devices):
+    import torch
+    import torch.distributed as dist
 
     dev = devices.resolve("cpu" if args.cpu else devices.DEFAULT)
     cfg = cfgmod.load_scenario(args.config)
@@ -51,7 +75,8 @@ def main(argv=None):
     out = run(cfg, cfgmod, model, plugin, args)
     out["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                      else "cpu")
-    print(json.dumps(out))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(out))
     return out
 
 
@@ -100,8 +125,13 @@ def _run_loop(cfg, cfgmod, model, plugin, args):
 
 def _run_mpc(cfg, cfgmod, model, plugin, args):
     import torch
+    import torch.distributed as dist
 
-    mpc = cfgmod.build_mpc(cfg, plugin)
+    from qppvm_tpu_torch.parallel import mesh as meshlib
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = meshlib.make_mesh(world, cfg.mpc.mesh_axis) if world > 1 else None
+    mpc = cfgmod.build_mpc(cfg, plugin, mesh=mesh)
     state = model.home_state()
     refs, warm, _ = plugin.on_start(state)
     U = mpc.init_plan()     # TypeError for a CentroidalMPC, as the reference
@@ -114,7 +144,7 @@ def _run_mpc(cfg, cfgmod, model, plugin, args):
         "mpc_steps": args.mpc_steps,
         "n_samples": cfg.mpc.n_samples,
         "horizon": cfg.mpc.horizon,
-        "devices": 1,
+        "devices": world,
         "plan_norm": round(float(torch.linalg.norm(U)), 4),
     }
 

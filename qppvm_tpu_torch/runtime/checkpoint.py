@@ -10,42 +10,12 @@ session continues bit-identically.
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any
 
 import numpy as np
 import torch
 
-
-def _leaves(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:
-    """(path, leaf) of every non-None leaf, depth first."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, f"{path}[{k!r}]")
-    elif isinstance(tree, (tuple, list)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, f"{path}[{i}]")
-    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        for f in dataclasses.fields(tree):
-            yield from _leaves(getattr(tree, f.name), f"{path}.{f.name}")
-    elif tree is not None:
-        yield path, tree
-
-
-def _rebuild(tree: Any, values: Dict[str, Any], path: str = "") -> Any:
-    """``tree`` with each leaf replaced by ``values[its path]``."""
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, values, f"{path}[{k!r}]")
-                for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_rebuild(v, values, f"{path}[{i}]")
-                          for i, v in enumerate(tree))
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return dataclasses.replace(tree, **{
-            f.name: _rebuild(getattr(tree, f.name), values,
-                             f"{path}.{f.name}")
-            for f in dataclasses.fields(tree)})
-    return None if tree is None else values[path]
+from qppvm_tpu_torch.tree import leaves, rebuild
 
 
 def _npz(path: str) -> str:
@@ -58,7 +28,7 @@ def save(path: str, tree: Any) -> str:
     path = _npz(path)
     np.savez(path, **{k: (v.detach().cpu().numpy()
                           if isinstance(v, torch.Tensor) else np.asarray(v))
-                      for k, v in _leaves(tree)})
+                      for k, v in leaves(tree)})
     return path
 
 
@@ -68,7 +38,7 @@ def load(path: str, example: Any) -> Any:
     raises KeyError; one of another shape raises ValueError."""
     values = {}
     with np.load(_npz(path)) as data:
-        for key, ex in _leaves(example):
+        for key, ex in leaves(example):
             if key not in data:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
             arr = data[key]
@@ -80,7 +50,7 @@ def load(path: str, example: Any) -> Any:
                                            device=ex.device)
                            if isinstance(ex, torch.Tensor)
                            else np.asarray(arr, dtype=np.asarray(ex).dtype))
-    return _rebuild(example, values)
+    return rebuild(example, values)
 
 
 def save_session(path: str, *, state, refs, warm, plan=None) -> str:

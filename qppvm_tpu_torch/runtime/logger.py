@@ -3,7 +3,9 @@ qppvm_tpu/runtime/logger.py).
 
 ``TraceBuffer`` is the reference's MatLogger: named channels in host
 arrays preallocated at first use (no allocation in the loop), flushed to
-``.npz`` and to MATLAB ``.mat``. ``ConsoleLogger`` is its XBot::Logger.
+``.npz`` and to MATLAB ``.mat``. ``scan_with_stream`` runs a loop on the
+device and streams its channels into a TraceBuffer a chunk at a time.
+``ConsoleLogger`` is its XBot::Logger.
 """
 from __future__ import annotations
 
@@ -82,6 +84,43 @@ class TraceBuffer:
         scipy.io.savemat(self.path + ".mat",
                          {k.replace("/", "_"): v for k, v in data.items()})
         return self.path + ".npz"
+
+
+# device-to-host copies made by scan_with_stream; readers reset it to 0
+host_copies = 0
+
+
+def scan_with_stream(body, carry, length: int, trace: TraceBuffer,
+                     chunk: int = 64, ordered: bool = True):
+    """Run ``length`` ticks of ``body(carry, None) -> (carry, channels)``
+    (channels: a dict of named tensors) and stream the channels into
+    ``trace``: each chunk of ``chunk`` ticks is stacked on the device and
+    crosses to the host in one copy, then lands in ``trace.add_block``.
+    The reference's loop runs as one device program with a host callback
+    a chunk; this one is eager, its ticks dispatched from the host.
+    ``ordered`` is kept for the reference's signature: an eager loop
+    delivers its chunks in order. ``length`` must be a multiple of
+    ``chunk``. Returns the final carry."""
+    global host_copies
+    if length % chunk != 0:
+        raise ValueError(f"length {length} not a multiple of chunk {chunk}")
+    for _ in range(length // chunk):
+        ticks = []
+        for _ in range(chunk):
+            carry, channels = body(carry, None)
+            ticks.append(channels)
+        names = list(ticks[0])
+        stacked = [torch.stack([t[k] for t in ticks]) for k in names]
+        # every channel as float64 columns of one block: one copy a chunk
+        block = torch.cat([v.reshape(chunk, -1).to(torch.float64)
+                           for v in stacked], dim=1).cpu().numpy()
+        host_copies += 1
+        col = 0
+        for name, v in zip(names, stacked):
+            width = v[0].numel()
+            trace.add_block(name, block[:, col:col + width].reshape(v.shape))
+            col += width
+    return carry
 
 
 class Severity(enum.IntEnum):

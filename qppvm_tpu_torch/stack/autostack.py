@@ -1,6 +1,7 @@
 """AutoStack: the ``+`` / ``/`` / ``<<`` task-stack DSL
 (port of qppvm_tpu/stack/autostack.py). An AutoStack is static structure;
-per tick it assembles the batched numeric ``StackData``."""
+per tick it assembles the batched numeric ``StackData``; ``log`` is the
+reference's autostack->log / solver->log self-logging hook."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Sequence
@@ -104,3 +105,33 @@ class AutoStack:
             raise AssertionError(
                 f"stack n_eq={n_eq} but (item, row) {bad.tolist()} have "
                 f"u - l >= {tol}: not structural equalities")
+
+    def constraint_row_order(self) -> List[str]:
+        """The constraints' names in their effective order, equalities
+        first: the order of C's rows, and so of a warm state's z and y
+        (a checkpointed warm state is only valid under the same order)."""
+        return [c.name for c in self._ordered()]
+
+    @staticmethod
+    def log(trace, stack_data: hierarchy.StackData, x=None,
+            infos=None) -> None:
+        """Write a batch-1 stack into ``trace`` (a TraceBuffer), on the
+        reference's channels: each level's ``stack/level{i}_b`` and, with
+        the solution x (1, n), its ``stack/level{i}_residual`` A x - b and
+        ``stack/x``; with the solver's infos ``solver/level{i}_prim_res``,
+        ``_dual_res`` and ``_obj``. A larger batch raises ValueError: one
+        trace logs one robot."""
+        batch = stack_data.lb.shape[0]
+        if batch != 1:
+            raise ValueError(f"AutoStack.log logs one robot; got a batch of "
+                             f"{batch}")
+        for i, lv in enumerate(stack_data.levels):
+            trace.add(f"stack/level{i}_b", lv.b[0])
+            if x is not None:
+                trace.add(f"stack/level{i}_residual", lv.A[0] @ x[0] - lv.b[0])
+        if x is not None:
+            trace.add("stack/x", x[0])
+        for i, info in enumerate(infos or ()):
+            trace.add(f"solver/level{i}_prim_res", float(info.prim_res[0]))
+            trace.add(f"solver/level{i}_dual_res", float(info.dual_res[0]))
+            trace.add(f"solver/level{i}_obj", float(info.obj[0]))

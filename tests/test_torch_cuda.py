@@ -577,3 +577,59 @@ def test_ddp_plan_card_matches_cpu(device, robot, feet):
             1 + float(b.abs().max())), f
     assert float((got.k.cpu() - want.k).abs().max()) <= 1e-3 * (
         1 + float(want.U.abs().max()))
+
+
+def test_sharded_plan_on_two_ranks_matches_one_process(device, tmp_path):
+    """The dryrun's planner (qppvm_tpu_torch/dryrun.py) with 16 samples on
+    2 gloo ranks of the card, each rolling its 8 out through the level
+    kernel (16 level launches, 1 NS launch, 0 fallbacks a plan): U_new the
+    same on both ranks and within tests/test_mpc_parallel.py's bars of
+    the same plan in one process."""
+    import numpy as np
+
+    import torch_parallel_ranks as ranks
+    from qppvm_tpu_torch import dryrun
+    from qppvm_tpu_torch.parallel import mesh as meshlib
+
+    level_qp.library()
+    ns_inverse.library()
+    got = meshlib.run_ranks(ranks.card_plan, 2, timeout_s=300.0,
+                            group_timeout_s=120.0,
+                            init_file=str(tmp_path / "rendezvous"))
+    U1, info1, counts1, _ = dryrun.plan_step(16, device)
+    assert counts1 == (16, 1, 0)
+    for U, cost, counts in got:
+        assert counts == (16, 1, 0)
+        np.testing.assert_array_equal(U, got[0][0])
+        np.testing.assert_allclose(U, U1.cpu().numpy(), atol=1e-4)
+        np.testing.assert_allclose(cost, float(info1["cost_mean"]),
+                                   rtol=1e-3)
+
+
+def test_flop_count_is_the_same_through_kernel_and_plain(device):
+    """bench_util.matmul_flops of the humanoid's RT tick at B 37 through
+    the level kernel and through the plain level solver."""
+    from qppvm_tpu_torch import bench_util
+    from qppvm_tpu_torch.model import zoo
+    from qppvm_tpu_torch.mpc.rollout import standing_state
+    from qppvm_tpu_torch.mpc.sampling import expand_batch
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+
+    model = zoo.humanoid(device=device)
+    contacts = ("l_sole", "r_sole")
+    st = standing_state(model, contacts)
+    rt = dict(rho_updates=0, warm_kinv_iters=4, cold_ns_iters=10,
+              scale_iters=2, pinv_ns_iters=5)
+    counts = {}
+    for backend in ("kernel", "torch"):
+        plugin = ForceAccPlugin(model, contact_links=contacts,
+                                waist_link="pelvis", iters=12,
+                                solver_opts=dict(rt, backend=backend))
+        refs, warm, _ = plugin.on_start(st)
+        st_b, refs_b, warm_b = expand_batch(st, refs, warm, 37)
+        level_qp.launches = 0
+        counts[backend] = bench_util.matmul_flops(plugin._step_impl, st_b,
+                                                  refs_b, warm_b)
+        torch.cuda.synchronize()
+        assert level_qp.launches == (2 if backend == "kernel" else 0)
+    assert counts["kernel"] == counts["torch"] > 0

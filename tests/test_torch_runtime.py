@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from qppvm_tpu_torch import tree as trees
 from qppvm_tpu_torch.model import dynamics, zoo
 from qppvm_tpu_torch.plugins.qppvm import QPPVMPlugin
 from qppvm_tpu_torch.runtime import checkpoint, logger
@@ -209,9 +210,9 @@ def test_session_checkpoint_resumes_bit_identically(arm, tmp_path):
     path = checkpoint.save_session(str(tmp_path / "session"),
                                    state=robot.state, refs=refs, warm=warm)
     assert path.endswith(".npz")
-    zero = lambda tree: checkpoint._rebuild(  # noqa: E731
+    zero = lambda tree: trees.rebuild(  # noqa: E731
         tree, {k: torch.zeros_like(v)
-               for k, v in checkpoint._leaves(tree)})
+               for k, v in trees.leaves(tree)})
     state2, refs2, warm2 = checkpoint.load_session(
         path, state=zero(robot.state), refs=zero(refs), warm=zero(warm))
     tau_a, warm_a, _ = plugin.control_loop(robot.state, refs, warm)
