@@ -1,0 +1,142 @@
+"""The contact plant (frozen copy of the port's
+``runtime/robot_interface.py`` plant functions): drive PD plus commanded
+effort, joint hard stops and compliant ground contact, integrated by
+``_sim_step``; ``ground_forces`` is shared with the MPC rollout. Every
+state and every per-robot tensor carries a leading batch dimension B.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from benchmark.reference.model import dynamics, kinematics
+from benchmark.reference.model.robot import RobotModel, RobotState
+
+
+def standing_state(model: RobotModel, contact_links, ground_z: float = 0.0,
+                   batch: int = 1) -> RobotState:
+    """Home state translated so the lowest contact link rests on the ground
+    plane (no penetration; ``mpc.rollout.standing_state`` adds the
+    equilibrium penetration)."""
+    st = model.home_state(batch)
+    kin = kinematics.fk(model, st)
+    foot_z = torch.amin(torch.stack(
+        [kin.p[:, model.link_index(c), 2] for c in contact_links]), dim=0)
+    zero = torch.zeros_like(foot_z)
+    shift = torch.stack([zero, zero, foot_z - ground_z], dim=-1)
+    return dataclasses.replace(st, base_pos=st.base_pos - shift)
+
+
+def contact_offsets_for(contact_links, contact_offsets=None):
+    """Per contact link, its local contact points as a tuple of 3-tuples:
+    the given patch, else the link origin."""
+    offs = []
+    for link in contact_links:
+        if contact_offsets and link in contact_offsets:
+            offs.append(tuple(map(tuple, np.asarray(
+                contact_offsets[link], float).reshape(-1, 3).tolist())))
+        else:
+            offs.append(((0.0, 0.0, 0.0),))
+    return tuple(offs)
+
+
+def ground_forces(model: RobotModel, contact_idx, contact_offsets, ground_z,
+                  kp_c, kd_c, mu, kt_c, kin, J_all, u, anchors, dtype,
+                  kd_t=None):
+    """The ground-contact model: per-point compliant normal force and a
+    tangential spring-damper to a per-point xy stiction anchor, clamped to
+    the friction cone mu fz; where the clamp saturates the anchor slides so
+    the spring stays consistent with the clamped force; anchors reset to
+    the point while it is airborne. Forces are accumulated as wrenches
+    (force and moment) at each contact link's origin.
+
+    ``kin``, ``J_all`` (B, nj, 6, nv), ``u`` (B, nv) and ``anchors``
+    (B, n_pts, 2) are batched; ``mu`` is a float or a (B,) tensor.
+    ``kd_t``: tangential damping (default 5 kd_c, the plant's value; a
+    coarse integrator must pass an h-scaled one). Every test is per point
+    of each item. Returns ``(ext (B, nj, 6), new_anchors (B, n_pts, 2))``."""
+    if kd_t is None:
+        kd_t = 5.0 * kd_c
+    Bsz = u.shape[0]
+    dev = u.device
+    ext = torch.zeros((Bsz, model.nj, 6), dtype=dtype, device=dev)
+    mu = torch.as_tensor(mu, dtype=dtype, device=dev).reshape(-1, 1)
+    new_anchors = []
+    pt = 0
+    for li, offsets in zip(contact_idx, contact_offsets):
+        n_pts = len(offsets)
+        off = torch.tensor(offsets, dtype=dtype, device=dev)      # (K, 3)
+        tw = (J_all[:, li] @ u[..., None])[..., 0]                # (B, 6)
+        r = torch.einsum("bij,kj->bki", kin.R[:, li], off)        # (B, K, 3)
+        p = kin.p[:, li, None] + r
+        v = tw[:, None, :3] + torch.linalg.cross(
+            tw[:, None, 3:].expand_as(r), r, dim=-1)
+        pen = ground_z - p[..., 2]                        # > 0 in contact
+        in_contact = pen > 0.0
+        fz = torch.clamp((kp_c * pen - kd_c * v[..., 2]) / n_pts, min=0.0)
+        a = anchors[:, pt:pt + n_pts]
+        ft = (-kt_c * (p[..., :2] - a) - kd_t * v[..., :2]) / n_pts
+        ft_norm = torch.linalg.norm(ft, dim=-1) + 1e-9
+        scale = torch.clamp(mu * fz / ft_norm, max=1.0)
+        ft = ft * scale[..., None]
+        a_slide = p[..., :2] + (ft * n_pts + kd_t * v[..., :2]) / kt_c
+        new_anchors.append(torch.where(
+            in_contact[..., None],
+            torch.where((scale < 1.0)[..., None], a_slide, a), p[..., :2]))
+        f = torch.where(in_contact[..., None],
+                        torch.cat([ft, fz[..., None]], dim=-1), 0.0)
+        wrench = torch.cat([f, torch.linalg.cross(r, f, dim=-1)], dim=-1)
+        ext[:, li] += wrench.sum(dim=1)
+        pt += n_pts
+    return ext, torch.cat(new_anchors, dim=1)
+
+
+def init_anchors(model: RobotModel, state: RobotState, contact_idx,
+                 contact_offsets, dtype=torch.float32):
+    """Initial stiction anchors (B, n_pts, 2): each contact point's world
+    xy at ``state``."""
+    kin = kinematics.fk(model, state)
+    pts = []
+    for li, offsets in zip(contact_idx, contact_offsets):
+        off = torch.tensor(offsets, dtype=dtype, device=state.q.device)
+        r = torch.einsum("bij,kj->bki", kin.R[:, li], off)
+        pts.append((kin.p[:, li, None] + r)[..., :2])
+    if not pts:
+        return torch.zeros((state.batch, 0, 2), dtype=dtype,
+                           device=state.q.device)
+    return torch.cat(pts, dim=1)
+
+
+def stop_torques(model: RobotModel, state: RobotState,
+                 k_stop: float = 2e3, d_stop: float = 20.0):
+    """Joint-limit hard-stop torques (B, nj): stiff damped springs beyond
+    [q_min, q_max], not clipped by tau_max."""
+    dtype = state.q.dtype
+    below = torch.clamp(model.q_min.to(dtype) - state.q, min=0.0)
+    above = torch.clamp(state.q - model.q_max.to(dtype), min=0.0)
+    in_stop = (below > 0.0) | (above > 0.0)
+    return k_stop * (below - above) - torch.where(in_stop, d_stop * state.qd,
+                                                  0.0)
+
+
+def _sim_step(model: RobotModel, h: float, contact_idx, contact_offsets,
+              ground_z, kp_c, kd_c, mu, kt_c, state: RobotState, anchors,
+              tau_ref, q_ref, k, d):
+    """One physics substep: drive PD + effort (clipped to tau_max) + joint
+    hard stops + ground contact. Returns ``(new_state, new_anchors)``."""
+    tau = tau_ref + k * (q_ref - state.q) - d * state.qd
+    tau = torch.clamp(tau, -model.tau_max, model.tau_max)
+    tau = tau + stop_torques(model, state)
+    ext, new_anchors, kin = None, anchors, None
+    if contact_idx:
+        kin = kinematics.fk(model, state)
+        J_all = kinematics.all_link_jacobians(model, kin)
+        u = state.u if model.floating else state.qd
+        ext, new_anchors = ground_forces(
+            model, contact_idx, contact_offsets, ground_z, kp_c, kd_c, mu,
+            kt_c, kin, J_all, u, anchors, state.q.dtype)
+    udot = dynamics.forward_dynamics(model, state, tau, ext_wrenches=ext,
+                                     kin=kin)
+    return dynamics.integrate(model, state, udot, h), new_anchors
