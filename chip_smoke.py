@@ -535,6 +535,26 @@ LOADER_ROBOTS = (("xarm", URDF_ARM1, {}, ("arm1_7", "arm1_4")),
 EXEC_TICKS, EXEC_PERIOD_S, EXEC_Z_TOL = 100, 0.1, 0.05
 
 
+# the program's counters (qppvm_tpu_torch/telemetry.py) the phases reset
+# and read: level and NS kernel launches, levels outside the level kernel's
+# profile, plain mass-matrix inverses of CUDA tensors, streamed host copies
+LEVEL, NS, FALLBACK = "level_qp.launch", "ns_inverse.launch", \
+    "cascade.fallback"
+PLAIN, COPY = "model.plain_inverse", "logger.host_copy"
+
+
+def zero(*names):
+    """Set the named counters back to 0."""
+    from qppvm_tpu_torch import telemetry
+    telemetry.reset(*names)
+
+
+def counted(name) -> int:
+    """The count of ``name`` since it was last set back to 0."""
+    from qppvm_tpu_torch import telemetry
+    return telemetry.counts()[name]
+
+
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -728,10 +748,10 @@ def phase_ns_inverse(torch, dev, card):
     M = torch.tensor(np.random.default_rng(0).standard_normal(
         (NS_B, NS_N, NS_N), dtype=np.float32), device=dev)
     K = M @ M.transpose(1, 2) + 0.5 * torch.eye(NS_N, device=dev)
-    nsi.launches = 0
+    zero(NS)
     X = nsi.ns_inverse(K, NS_ITERS)      # the path, as a caller drives it
     torch.cuda.synchronize()
-    launches = nsi.launches
+    launches = counted(NS)
     if launches != 1:
         fail(f"ns_inverse path: {launches} kernel launches, expected 1")
 
@@ -888,11 +908,11 @@ def check_plant_step(torch, nsi, loop, res):
     Breg = Bm + 1e-9 * torch.eye(model.nv, device=Bm.device)
     step = lambda **kw: dynamics.forward_dynamics(  # noqa: E731
         model, st, res.taus[-1], ext_wrenches=ext, kin=kin, B=Bm, **kw)
-    nsi.launches = 0
+    zero(NS)
     udot = step()
     torch.cuda.synchronize()
-    if nsi.launches != 1:
-        fail(f"plant step: {nsi.launches} NS launches, expected 1")
+    if counted(NS) != 1:
+        fail(f"plant step: {counted(NS)} NS launches, expected 1")
     ref = step(binv=nsi.ns_inverse_reference(Breg, 24))
     err = float((udot - ref).abs().max())
     scale = float(ref.abs().max())
@@ -934,15 +954,15 @@ def phase_closed_loop(torch, dev, card, hierarchy, level_qp, nsi):
     loop_k = rt_loop.humanoid_loop("kernel", device=dev)
     loop_k.run(1)                           # warm-up, untimed
     torch.cuda.synchronize()
-    level_qp.launches = 0
-    hierarchy.fallbacks = 0
-    nsi.launches = 0
+    zero(LEVEL)
+    zero(FALLBACK)
+    zero(NS)
     t0 = time.perf_counter()
     res_k = loop_k.run(KERNEL_LOOP_TICKS, record=LOOP_COMPARE)
     torch.cuda.synchronize()
     tick_k_ms = (time.perf_counter() - t0) / KERNEL_LOOP_TICKS * 1e3
-    launches, fallbacks = level_qp.launches, hierarchy.fallbacks
-    ns_launches = nsi.launches
+    launches, fallbacks = counted(LEVEL), counted(FALLBACK)
+    ns_launches = counted(NS)
     if launches != 2 * KERNEL_LOOP_TICKS or fallbacks != 0:
         fail(f"kernel loop: {launches} launches and {fallbacks} fallbacks, "
              f"expected {2 * KERNEL_LOOP_TICKS} and 0")
@@ -978,25 +998,25 @@ def phase_mpc(torch, dev, card, hierarchy, level_qp, nsi):
 
     hp = humanoid_plan("kernel", device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
-    level_qp.launches = 0
-    hierarchy.fallbacks = 0
-    nsi.launches = 0
+    zero(LEVEL)
+    zero(FALLBACK)
+    zero(NS)
     U, info0 = hp.plan(g, hp.mpc.init_plan())      # untimed
     torch.cuda.synchronize()
-    if level_qp.launches != 2 * HORIZON or hierarchy.fallbacks != 0:
-        fail(f"MPC plan: {level_qp.launches} launches, "
-             f"{hierarchy.fallbacks} fallbacks, expected {2 * HORIZON}, 0")
-    if nsi.launches != 1:
-        fail(f"MPC plan: {nsi.launches} NS launches, expected 1")
-    level_qp.launches = 0
-    nsi.launches = 0
+    if counted(LEVEL) != 2 * HORIZON or counted(FALLBACK) != 0:
+        fail(f"MPC plan: {counted(LEVEL)} launches, "
+             f"{counted(FALLBACK)} fallbacks, expected {2 * HORIZON}, 0")
+    if counted(NS) != 1:
+        fail(f"MPC plan: {counted(NS)} NS launches, expected 1")
+    zero(LEVEL)
+    zero(NS)
     t0 = time.perf_counter()
     for _ in range(MPC_REPS):
         U, info = hp.plan(g, U)
     torch.cuda.synchronize()
     plan_ms = (time.perf_counter() - t0) / MPC_REPS * 1e3
-    launches, fallbacks = level_qp.launches, hierarchy.fallbacks
-    ns_launches = nsi.launches
+    launches, fallbacks = counted(LEVEL), counted(FALLBACK)
+    ns_launches = counted(NS)
     if launches != 2 * HORIZON * MPC_REPS or fallbacks != 0:
         fail(f"MPC plans: {launches} launches and {fallbacks} fallbacks, "
              f"expected {2 * HORIZON * MPC_REPS} and 0")
@@ -1059,14 +1079,14 @@ def phase_centaur_tick(torch, dev, card, hierarchy, level_qp, nsi, zoo):
             fail(f"centaur tick {k}: a wrench leaves its cone (|f_t| - "
                  f"mu/sqrt(2) fz up to {slip:.3g} N, min fz {fz:.6g} N)")
 
-    level_qp.launches = 0
-    hierarchy.fallbacks = 0
-    nsi.launches = 0
+    zero(LEVEL)
+    zero(FALLBACK)
+    zero(NS)
     taus, prim_max = chain(torch, plugins["kernel"], states, refs_b, warm_b,
                            "centaur kernel", inside_cones)
     torch.cuda.synchronize()
-    launches, fallbacks, ns_launches = (level_qp.launches,
-                                        hierarchy.fallbacks, nsi.launches)
+    launches, fallbacks, ns_launches = (counted(LEVEL),
+                                        counted(FALLBACK), counted(NS))
     if launches != 2 * TICKS or fallbacks != 0:
         fail(f"centaur tick: {launches} launches and {fallbacks} fallbacks, "
              f"expected {2 * TICKS} and 0")
@@ -1140,17 +1160,17 @@ def phase_quadruped_loop(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     z0 = float(loop.robot.state.base_pos[0, 2])
     weight = float(dynamics.compute_model_data(
         loop.plugin.model, loop.robot.state).total_mass[0]) * 9.81
-    level_qp.launches = 0
-    hierarchy.fallbacks = 0
-    nsi.launches = 0
+    zero(LEVEL)
+    zero(FALLBACK)
+    zero(NS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st, n_fail, fz_sums, fz_last, taus = drive_quadruped(
         torch, loop, waist, QUAD_TICKS, record=LOOP_COMPARE)
     torch.cuda.synchronize()
     tick_ms = (time.perf_counter() - t0) / QUAD_TICKS * 1e3
-    launches, fallbacks, ns_launches = (level_qp.launches,
-                                        hierarchy.fallbacks, nsi.launches)
+    launches, fallbacks, ns_launches = (counted(LEVEL),
+                                        counted(FALLBACK), counted(NS))
     if launches != 2 * QUAD_TICKS or fallbacks != 0:
         fail(f"quadruped loop: {launches} level launches and {fallbacks} "
              f"fallbacks, expected {2 * QUAD_TICKS} and 0")
@@ -1381,9 +1401,9 @@ def phase_capture(torch, dev, card, hierarchy, level_qp, nsi):
             plugin, ro.RolloutConfig(**CAPTURE_ROLLOUT, qp_backend=backend),
             ro.default_cost, swing=swing, terminal_cost=term,
             contact_offsets=offsets)
-        level_qp.launches = 0
-        hierarchy.fallbacks = 0
-        nsi.launches = 0
+        zero(LEVEL)
+        zero(FALLBACK)
+        zero(NS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         c, health = roll(st_k, refs_k, warm_k, U0, scen, thetas)
@@ -1391,11 +1411,11 @@ def phase_capture(torch, dev, card, hierarchy, level_qp, nsi):
         times[backend] = (time.perf_counter() - t0) * 1e3
         costs[backend] = c
         if backend == "kernel":
-            plan_launches = (level_qp.launches, nsi.launches)
-            if (level_qp.launches != len(shapes) * H
-                    or hierarchy.fallbacks != 0 or nsi.launches != 1):
-                fail(f"capture plan: {level_qp.launches} level launches, "
-                     f"{hierarchy.fallbacks} fallbacks, {nsi.launches} NS "
+            plan_launches = (counted(LEVEL), counted(NS))
+            if (counted(LEVEL) != len(shapes) * H
+                    or counted(FALLBACK) != 0 or counted(NS) != 1):
+                fail(f"capture plan: {counted(LEVEL)} level launches, "
+                     f"{counted(FALLBACK)} fallbacks, {counted(NS)} NS "
                      f"launches; expected {len(shapes) * H}, 0, 1")
         if not bool(torch.isfinite(c).all()):
             fail(f"capture plan ({backend}): costs {c.tolist()}")
@@ -1441,16 +1461,16 @@ def phase_capture(torch, dev, card, hierarchy, level_qp, nsi):
     robot.state, robot._anchors = shoved(snap[0]), snap[1]
     theta_c = {k: v[i_best:i_best + 1] for k, v in thetas.items()}
     ticks = fall_lean + CAPTURE_STEP_EXTRA
-    level_qp.launches = 0
-    hierarchy.fallbacks = 0
-    nsi.launches = 0
+    zero(LEVEL)
+    zero(FALLBACK)
+    zero(NS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fall_step, ups_step, foot_xy, rt_fails, ran = capture_run(
         torch, plugin, robot, base_refs, warm, theta_c, swing, ticks)
     torch.cuda.synchronize()
     tick_ms = (time.perf_counter() - t0) / ran * 1e3
-    loop_launches = (level_qp.launches, nsi.launches)
+    loop_launches = (counted(LEVEL), counted(NS))
     step_len = float(torch.linalg.norm(foot_xy[-1] - foot_xy[0]))
     up_at = ups_step[fall_lean] if fall_lean < len(ups_step) else None
     print(f"capture loop: lean-only fell at tick {fall_lean}; the chosen "
@@ -1459,8 +1479,8 @@ def phase_capture(torch, dev, card, hierarchy, level_qp, nsi):
           f"{step_len:.4f} m, {rt_fails} RT failures, "
           f"{loop_launches[0]} level launches (the plugin's profile runs "
           f"the plain level solver), {loop_launches[1]} NS launches")
-    if nsi.launches != robot.substeps * ran:
-        fail(f"capture loop: {nsi.launches} NS launches, expected "
+    if counted(NS) != robot.substeps * ran:
+        fail(f"capture loop: {counted(NS)} NS launches, expected "
              f"{robot.substeps} per tick ({robot.substeps * ran})")
     if not step_len > STEP_MIN_M:
         fail(f"capture loop: the swing foot moved {step_len:.4f} m")
@@ -1510,9 +1530,9 @@ def phase_step_recovery(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     U, theta = mpc["kernel"].init_plan(), mpc["kernel"].init_theta()
 
     def plans(reps, U, theta):
-        level_qp.launches = 0
-        hierarchy.fallbacks = 0
-        nsi.launches = 0
+        zero(LEVEL)
+        zero(FALLBACK)
+        zero(NS)
         for _ in range(reps):
             (U, theta), info = mpc["kernel"].plan_step(g, st, refs, warm, U,
                                                        theta)
@@ -1521,7 +1541,7 @@ def phase_step_recovery(torch, dev, card, hierarchy, level_qp, nsi, zoo):
                 fail(f"step-recovery plan: solver_fail_frac {ff}, costs "
                      f"finite {bool(torch.isfinite(info['costs']).all())}")
         torch.cuda.synchronize()
-        counts = (level_qp.launches, hierarchy.fallbacks, nsi.launches)
+        counts = (counted(LEVEL), counted(FALLBACK), counted(NS))
         if counts != (2 * H * reps, 0, reps):
             fail(f"step-recovery plans: (level launches, fallbacks, NS "
                  f"launches) {counts}, expected {(2 * H * reps, 0, reps)}")
@@ -1575,8 +1595,8 @@ def phase_step_recovery(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     gate_seq[:, :, 0] = torch.clamp(
         1.0 - torch.arange(Hg, device=dev) / 3.0, 0.0, 1.0)
     st_n, refs_n, warm_n = expand_batch(st, refs, warm, N)
-    level_qp.launches = 0
-    hierarchy.fallbacks = 0
+    zero(LEVEL)
+    zero(FALLBACK)
     cost, health = roll(st_n, refs_n, warm_n, torch.zeros((N, Hg, 3),
                                                           device=dev),
                         {"push": torch.zeros((N, Hg, 3), device=dev),
@@ -1584,11 +1604,11 @@ def phase_step_recovery(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     torch.cuda.synchronize()
     n_failed = int(health["solver_failed"].sum())
     print(f"gate_seq rollout, foot_fl ramped off mid-horizon, K={N} x {Hg} "
-          f"steps: {level_qp.launches} level launches, "
-          f"{hierarchy.fallbacks} fallbacks, {n_failed} failed samples, "
+          f"steps: {counted(LEVEL)} level launches, "
+          f"{counted(FALLBACK)} fallbacks, {n_failed} failed samples, "
           f"cost {float(cost.min()):.6g} to {float(cost.max()):.6g}")
     if (n_failed or not bool(torch.isfinite(cost).all())
-            or level_qp.launches != 2 * Hg or hierarchy.fallbacks):
+            or counted(LEVEL) != 2 * Hg or counted(FALLBACK)):
         fail("gate_seq rollout: unhealthy, non-finite or off the kernel")
     return counts[0], counts[2]
 
@@ -1638,15 +1658,15 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
 
     tmp = tempfile.TemporaryDirectory()
     robot = SimRobot(model, dt=1e-3, substeps=2)
-    nsi.launches = 0
-    dynamics.plain_inverses = 0
-    level_qp.launches = 0
+    zero(NS)
+    zero(PLAIN)
+    zero(LEVEL)
     t0 = time.perf_counter()
     stats, tr = qppvm_loop(torch, plugin, robot, QPPVM_TICKS,
                            tmp.name + "/dual_arm", sinusoid)
     run_s = time.perf_counter() - t0
-    ns_launches, plain, levels = (nsi.launches, dynamics.plain_inverses,
-                                  level_qp.launches)
+    ns_launches, plain, levels = (counted(NS), counted(PLAIN),
+                                  counted(LEVEL))
     # 1 NS launch a tick for Binv and 1 a plant substep, + on_start's Binv
     ns_expected = (1 + robot.substeps) * QPPVM_TICKS + 1
     if (ns_launches, plain, levels) != (ns_expected, 0, 0):
@@ -1708,14 +1728,14 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     kernel_inverse = dynamics.mass_matrix_inverse
     dynamics.mass_matrix_inverse = plain_inverse
     try:
-        nsi.launches = 0
+        zero(NS)
         _, tr_p = qppvm_loop(torch, plugin, SimRobot(model, dt=1e-3,
                                                      substeps=2),
                              QPPVM_COMPARE, tmp.name + "/plain", sinusoid)
     finally:
         dynamics.mass_matrix_inverse = kernel_inverse
-    if nsi.launches != 0:
-        fail(f"plain-NS QPPVM ticks made {nsi.launches} NS launches")
+    if counted(NS) != 0:
+        fail(f"plain-NS QPPVM ticks made {counted(NS)} NS launches")
     taus = torch.tensor(tr["tau_desired"][:QPPVM_COMPARE], device=dev)
     taus_p = torch.tensor(tr_p["tau_desired"], device=dev)
     ns_err = compare_taus(torch, list(taus), list(taus_p),
@@ -1736,8 +1756,8 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     chain_taus = {}
     for b, pl in chain_p.items():
         warm, chain_taus[b] = warm0, []
-        level_qp.launches = 0
-        hierarchy.fallbacks = 0
+        zero(LEVEL)
+        zero(FALLBACK)
         for k, s_k in enumerate(states):
             r = dict(refs, LEFT_ARM=pl.make_refs(start, k * 1e-3))
             tau, warm, aux = pl.control_loop(s_k, r, warm)
@@ -1746,11 +1766,11 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
             chain_taus[b].append(tau)
         torch.cuda.synchronize()
         if b == "kernel":
-            chain_launches = level_qp.launches
-            if (level_qp.launches, hierarchy.fallbacks) != (
+            chain_launches = counted(LEVEL)
+            if (counted(LEVEL), counted(FALLBACK)) != (
                     2 * QPPVM_COMPARE, 0):
-                fail(f"QPPVM kernel chain: {level_qp.launches} launches, "
-                     f"{hierarchy.fallbacks} fallbacks; expected "
+                fail(f"QPPVM kernel chain: {counted(LEVEL)} launches, "
+                     f"{counted(FALLBACK)} fallbacks; expected "
                      f"{2 * QPPVM_COMPARE} and 0")
     chain_err = compare_taus(torch, chain_taus["kernel"], chain_taus["torch"],
                              "QPPVM level-kernel chain")
@@ -1763,10 +1783,10 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     arm_plugin = QPPVMPlugin(arm, left_ee="arm1_7", right_ee="arm1_7",
                              iters=40)
     arm_robot = SimRobot(arm, dt=1e-3, substeps=2)
-    nsi.launches = 0
+    zero(NS)
     arm_stats, arm_tr = qppvm_loop(torch, arm_plugin, arm_robot, ARM7_TICKS,
                                    tmp.name + "/arm7")
-    arm_ns = nsi.launches
+    arm_ns = counted(NS)
     q_err = float((arm_robot.state.q - arm.q_home).abs().max())
     qd_max = float(arm_robot.state.qd.abs().max())
     tau_over = float((np.abs(arm_tr["tau_desired"][:, 0])
@@ -1876,16 +1896,16 @@ def phase_walk(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     p0 = kinematics.fk(model, robot.state).p[0]
     z0 = float(robot.state.base_pos[0, 2])
     stages = {k: [] for k in ("estimator", "refs_at", "control", "plant")}
-    level_qp.launches = 0
-    hierarchy.fallbacks = 0
-    nsi.launches = 0
+    zero(LEVEL)
+    zero(FALLBACK)
+    zero(NS)
     t0 = time.perf_counter()
     aux, n_fail, err_max, taus = drive_walk(torch, w, ticks,
                                             record=LOOP_COMPARE,
                                             stages=stages)
     run_s = time.perf_counter() - t0
-    launches, fallbacks, ns_launches = (level_qp.launches,
-                                        hierarchy.fallbacks, nsi.launches)
+    launches, fallbacks, ns_launches = (counted(LEVEL),
+                                        counted(FALLBACK), counted(NS))
     p1 = kinematics.fk(model, robot.state).p[0]
     moved = {c: (p1[model.link_index(c)] - p0[model.link_index(c)])
              for c in FEET}
@@ -1963,9 +1983,9 @@ def phase_async(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     planner = AsyncPlanner(mpc, replan_ticks=ASYNC_REPLAN,
                            ticks_per_step=ASYNC_TICKS_PER_STEP)
     stream = torch.cuda.current_stream()
-    level_qp.launches = 0
-    hierarchy.fallbacks = 0
-    nsi.launches = 0
+    zero(LEVEL)
+    zero(FALLBACK)
+    zero(NS)
     ages, tick_ms, in_flight, rt_fails = [], [], [], 0
     t0 = time.perf_counter()
     for i in range(ASYNC_TICKS):
@@ -1989,8 +2009,8 @@ def phase_async(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     run_s = time.perf_counter() - t0
     planner.close()
     torch.cuda.synchronize()
-    launches, fallbacks, ns_launches = (level_qp.launches,
-                                        hierarchy.fallbacks, nsi.launches)
+    launches, fallbacks, ns_launches = (counted(LEVEL),
+                                        counted(FALLBACK), counted(NS))
     fails = [float(info["solver_fail_frac"]) for info in planner.infos]
     up = float(robot.state.base_rot[0, 2, 2])
     z, z0 = float(robot.state.base_pos[0, 2]), float(st0.base_pos[0, 2])
@@ -2055,14 +2075,14 @@ def phase_entry(torch, dev, card, hierarchy, level_qp, nsi, zoo):
             + [RUN_MPC]:
         path = str(ROOT / "configs" / f"{cname}.yaml")
         cfg = config.load_scenario(path)
-        nsi.launches = 0
-        level_qp.launches = 0
-        hierarchy.fallbacks = 0
+        zero(NS)
+        zero(LEVEL)
+        zero(FALLBACK)
         t0 = time.perf_counter()
         out = run.main(["--config", path, *args])
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        ns_by[cname], level_by[cname] = nsi.launches, level_qp.launches
+        ns_by[cname], level_by[cname] = counted(NS), counted(LEVEL)
         keys = ({"scenario", "mpc_steps", "n_samples", "horizon", "devices",
                  "plan_norm", "device"} if cfg.mpc.enabled else
                 loop_keys | ({"final_base_z"} if cfg.plugin.contact_links
@@ -2079,12 +2099,12 @@ def phase_entry(torch, dev, card, hierarchy, level_qp, nsi, zoo):
                      f"against the standing {z_stand:.4f} m")
         if cfg.mpc.enabled:
             horizon = int(args[args.index("--horizon") + 1])
-            if (level_qp.launches, hierarchy.fallbacks, out["devices"]) != (
-                    2 * horizon, 0, 1) or nsi.launches != 1:
-                fail(f"run {cname}: {level_qp.launches} level launches, "
-                     f"{hierarchy.fallbacks} fallbacks, {nsi.launches} NS")
-        elif nsi.launches < int(round(float(RUN_SECONDS) * 1e3)):
-            fail(f"run {cname}: {nsi.launches} NS launches")
+            if (counted(LEVEL), counted(FALLBACK), out["devices"]) != (
+                    2 * horizon, 0, 1) or counted(NS) != 1:
+                fail(f"run {cname}: {counted(LEVEL)} level launches, "
+                     f"{counted(FALLBACK)} fallbacks, {counted(NS)} NS")
+        elif counted(NS) < int(round(float(RUN_SECONDS) * 1e3)):
+            fail(f"run {cname}: {counted(NS)} NS launches")
         print(f"[{card}] run {cname} {' '.join(args)}: {json.dumps(out)} "
               f"({run_s:.1f} s with set-up; {ns_by[cname]} NS launches, "
               f"{level_by[cname]} level launches)")
@@ -2110,11 +2130,11 @@ def phase_entry(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         box["ticks"] += 1
         return True
 
-    nsi.launches = 0
+    zero(NS)
     ex = native.NativeExecutor(period_s=EXEC_PERIOD_S)
     done = ex.run(tick, EXEC_TICKS)
     stats = ex.stats()
-    exec_ns = nsi.launches
+    exec_ns = counted(NS)
     n_pop = 0
     while ring.pop() is not None:
         n_pop += 1
@@ -2206,8 +2226,8 @@ def ddp_loop(torch, dev, zoo, backend, ticks, force=False, record=0):
     w_force = torch.full((1,), DDP_FORCE_W, device=dev)
     n_fail = torch.zeros((), dtype=torch.int64, device=dev)
     taus, track, plan_s = [], [], 0.0
-    level_qp.launches = hierarchy.fallbacks = nsi.launches = 0
-    dynamics.plain_inverses = 0
+    zero(LEVEL, FALLBACK, NS)
+    zero(PLAIN)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(ticks):
@@ -2260,13 +2280,13 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     # (a) the LQR problem, float32 on the card
     solve, x0_t, U0, (A, Bm, Q, R, x0) = lqr_problem(torch, dev)
     H = U0.shape[0]
-    nsi.launches = 0
-    dynamics.plain_inverses = 0
+    zero(NS)
+    zero(PLAIN)
     res = solve(x0_t, U0)
     torch.cuda.synchronize()
-    lqr_ns = nsi.launches
-    if (lqr_ns, dynamics.plain_inverses) != (H * 4, 0):
-        fail(f"ddp LQR: {lqr_ns} NS launches, {dynamics.plain_inverses} "
+    lqr_ns = counted(NS)
+    if (lqr_ns, counted(PLAIN)) != (H * 4, 0):
+        fail(f"ddp LQR: {lqr_ns} NS launches, {counted(PLAIN)} "
              f"plain inverses, expected {H * 4} and 0")
     P, Ks = Q.copy(), []
     for _ in range(H):
@@ -2297,15 +2317,15 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
             torch, getattr(zoo, robot)(device=dev), contacts, DDP_TEST)
         cpu_mpc, cpu_st, cpu_ref = ddp_planner(
             torch, getattr(zoo, robot)(device="cpu"), contacts, DDP_TEST)
-        nsi.launches = 0
-        dynamics.plain_inverses = 0
+        zero(NS)
+        zero(PLAIN)
         res, _ = mpc.plan(st, p_ref, mpc.init_plan(st))
         torch.cuda.synchronize()
-        plan_ns = nsi.launches
-        if (plan_ns, dynamics.plain_inverses) != (plan_launches(DDP_TEST),
+        plan_ns = counted(NS)
+        if (plan_ns, counted(PLAIN)) != (plan_launches(DDP_TEST),
                                                   0):
             fail(f"ddp plan ({robot}): {plan_ns} NS launches, "
-                 f"{dynamics.plain_inverses} plain inverses, expected "
+                 f"{counted(PLAIN)} plain inverses, expected "
                  f"{plan_launches(DDP_TEST)} and 0")
         ref, _ = cpu_mpc.plan(cpu_st, cpu_ref, cpu_mpc.init_plan(cpu_st))
         gaps = []
@@ -2333,8 +2353,8 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         mpc, st, p_ref = ddp_planner(
             torch, getattr(zoo, robot)(device=dev), contacts, {})
         res, _ = mpc.plan(st, p_ref, mpc.init_plan(st))
-        nsi.launches = 0
-        dynamics.plain_inverses = 0
+        zero(NS)
+        zero(PLAIN)
         times = []
         for _ in range(DDP_PLAN_REPS):
             torch.cuda.synchronize()
@@ -2342,13 +2362,13 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
             res, _ = mpc.plan(st, p_ref, res.U)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        per_plan = nsi.launches / DDP_PLAN_REPS
-        if per_plan != plan_launches({}) or dynamics.plain_inverses != 0:
+        per_plan = counted(NS) / DDP_PLAN_REPS
+        if per_plan != plan_launches({}) or counted(PLAIN) != 0:
             fail(f"ddp default plan ({robot}): {per_plan} NS launches a "
-                 f"plan, {dynamics.plain_inverses} plain inverses")
+                 f"plan, {counted(PLAIN)} plain inverses")
         if not (torch.isfinite(res.U).all() and torch.isfinite(res.cost)):
             fail(f"ddp default plan ({robot}): not finite")
-        ns_by[f"ddp_plans_default_{robot}"] = nsi.launches
+        ns_by[f"ddp_plans_default_{robot}"] = counted(NS)
         plan_ms[robot] = statistics.mean(times)
         print(f"[{card}] ddp plan, default config (horizon "
               f"{mpc.cfg.horizon}, {mpc.cfg.iterations} iterations, nu "
@@ -2364,8 +2384,8 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
                          ("ddp_force_plan_b1", True)):
         loop = ddp_loop(torch, dev, zoo, "kernel", DDP_TICKS, force=force,
                         record=LOOP_COMPARE)
-        launches, fallbacks = level_qp.launches, hierarchy.fallbacks
-        ns = nsi.launches
+        launches, fallbacks = counted(LEVEL), counted(FALLBACK)
+        ns = counted(NS)
         want_ns = 4 * DDP_TICKS + loop["plans"] * plan_launches(DDP_TEST)
         track = loop["track"][2:]
         print(f"{label}: {DDP_TICKS} ticks at B=1, {loop['plans']} plans: "
@@ -2375,7 +2395,7 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
               + (f", normal-force tracking error mean {np.mean(track):.4f} "
                  f"(max {max(track):.4f})" if force else "")
               + f"; {launches} level launches, {fallbacks} fallbacks, {ns} "
-              f"NS launches, {dynamics.plain_inverses} plain inverses")
+              f"NS launches, {counted(PLAIN)} plain inverses")
         if loop["n_fail"] or not loop["finite"]:
             fail(f"{label}: {loop['n_fail']} solver failures")
         if not loop["dz"] < DDP_DZ_MAX:
@@ -2384,7 +2404,7 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
             fail(f"{label}: the plan ends {loop['end_gap']:+.4f} m off")
         if force and not np.mean(track) < DDP_TRACK_MAX:
             fail(f"{label}: normal-force tracking error {np.mean(track):.4f}")
-        if (launches, fallbacks, ns, dynamics.plain_inverses) != (
+        if (launches, fallbacks, ns, counted(PLAIN)) != (
                 2 * DDP_TICKS, 0, want_ns, 0):
             fail(f"{label}: expected {2 * DDP_TICKS} level launches, 0 "
                  f"fallbacks, {want_ns} NS launches, 0 plain inverses")
@@ -2471,8 +2491,8 @@ def phase_loaders(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         if model.device.type != dev.type or model.link_names[-1] != "arm1_7":
             fail(f"loaders: config 1 on the URDF built {model.link_names} on "
                  f"{model.device}")
-        nsi.launches = 0
-        level_qp.launches = 0
+        zero(NS)
+        zero(LEVEL)
         t0 = time.perf_counter()
         out = run.main(["--config", str(cfg_path), "--seconds", RUN_SECONDS])
         torch.cuda.synchronize()
@@ -2484,13 +2504,13 @@ def phase_loaders(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     if (set(out) != keys or out["device"] != torch.cuda.get_device_name(dev)
             or not all(math.isfinite(v) for v in nums)):
         fail(f"loaders run config 1 on the URDF: {out}")
-    if nsi.launches < ticks:
-        fail(f"loaders run: {nsi.launches} NS launches over {ticks} ticks")
+    if counted(NS) < ticks:
+        fail(f"loaders run: {counted(NS)} NS launches over {ticks} ticks")
     print(f"[{card}] run config1_arm7 on the URDF arm --seconds "
           f"{RUN_SECONDS}: {json.dumps(out)} ({run_s:.1f} s with set-up; "
-          f"{nsi.launches} NS launches, {nsi.launches / ticks:.2f} a tick, "
-          f"{level_qp.launches} level launches)")
-    return {"run_config1_urdf": nsi.launches}
+          f"{counted(NS)} NS launches, {counted(NS) / ticks:.2f} a tick, "
+          f"{counted(LEVEL)} level launches)")
+    return {"run_config1_urdf": counted(NS)}
 
 
 def _ring_rank(rank, n_ranks, device_type):
@@ -2535,7 +2555,7 @@ def _ring_rank(rank, n_ranks, device_type):
     mesh = meshlib.make_mesh(n_ranks, axis="seg")
     out = {}
     for sweeps in (None, 1, n_ranks):
-        level_qp.launches = hierarchy.fallbacks = 0
+        zero(LEVEL, FALLBACK)
         sync()
         t0 = time.perf_counter()
         final, outs, info = ring_rollout(rollout.one_step, carry0, U, mesh,
@@ -2544,7 +2564,7 @@ def _ring_rank(rank, n_ranks, device_type):
         ms = (time.perf_counter() - t0) * 1e3
         out[sweeps] = {
             "ms": ms, "defect": float(info.defect),
-            "launches": (level_qp.launches, hierarchy.fallbacks),
+            "launches": (counted(LEVEL), counted(FALLBACK)),
             # cost and prim_res of each step against the sequential ones
             "outs_err": max(float((a - torch.stack(b)).abs().max())
                             for a, b in zip(outs[:2], list(zip(*seg))[:2])),
@@ -2681,15 +2701,15 @@ def phase_stream(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     carry0 = (robot.state, robot._anchors, warm)
     with tempfile.TemporaryDirectory() as tmp:
         streamed = logger.TraceBuffer(f"{tmp}/dev", capacity=STREAM_TICKS)
-        logger.host_copies = 0
-        nsi.launches = 0
+        zero(COPY)
+        zero(NS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         carry_s = logger.scan_with_stream(tick, carry0, STREAM_TICKS,
                                           streamed, chunk=STREAM_CHUNK)
         torch.cuda.synchronize()
         ms_s = (time.perf_counter() - t0) / STREAM_TICKS * 1e3
-        copies, ns_launches = logger.host_copies, nsi.launches
+        copies, ns_launches = counted(COPY), counted(NS)
         host = logger.TraceBuffer(f"{tmp}/host", capacity=STREAM_TICKS)
         c = carry0
         t0 = time.perf_counter()
@@ -2934,12 +2954,12 @@ def phase_main_path(torch, dev, card, hierarchy, level_qp, zoo):
     # ---- 3. main path -------------------------------------------------------
     plugins, states, refs_b, warm_b = main_path_inputs(
         torch, dev, zoo.humanoid(device=dev), CONTACTS)
-    level_qp.launches = 0
-    hierarchy.fallbacks = 0
+    zero(LEVEL)
+    zero(FALLBACK)
     taus, prim_max = chain(torch, plugins["kernel"], states, refs_b, warm_b,
                            "kernel")
     torch.cuda.synchronize()
-    launches, fallbacks = level_qp.launches, hierarchy.fallbacks
+    launches, fallbacks = counted(LEVEL), counted(FALLBACK)
     print(f"main path: {TICKS} ticks at B={B}: kernel launches {launches}, "
           f"fallbacks {fallbacks}, solver_fail_frac 0.0, prim_res_max "
           f"{prim_max:.3g}")

@@ -50,11 +50,12 @@ def plan_step(n_samples: int, device, mesh=None, seed: int = 0):
     sharded over ``mesh`` (None: all in this process); on_start's
     references and warm state are rank 0's on every rank. Returns
     (U_new, info, counts, ms): counts are this process's level launches,
-    NS launches and fallbacks of the plan, ms its host time to a
-    synchronize."""
+    NS launches and fallbacks of the plan (``telemetry``'s
+    ``level_qp.launch``, ``ns_inverse.launch``, ``cascade.fallback``), ms
+    its host time to a synchronize."""
+    from qppvm_tpu_torch import telemetry
     from qppvm_tpu_torch.mpc.rollout import RolloutConfig
     from qppvm_tpu_torch.mpc.sampling import MPPIConfig, SamplingMPC
-    from qppvm_tpu_torch.opt import hierarchy, level_qp, ns_inverse
     from qppvm_tpu_torch.parallel import mesh as meshlib
 
     _, plugin, state = flagship(device)
@@ -69,13 +70,15 @@ def plan_step(n_samples: int, device, mesh=None, seed: int = 0):
     gen = torch.Generator(device=device).manual_seed(seed)
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else lambda: None)
-    level_qp.launches = ns_inverse.launches = hierarchy.fallbacks = 0
+    names = ("level_qp.launch", "ns_inverse.launch", "cascade.fallback")
+    telemetry.reset(*names)
     sync()
     t0 = time.perf_counter()
     U_new, info = mpc.plan(gen, state, refs, warm, U)
     sync()
     ms = (time.perf_counter() - t0) * 1e3
-    counts = (level_qp.launches, ns_inverse.launches, hierarchy.fallbacks)
+    counted = telemetry.counts()
+    counts = tuple(counted[name] for name in names)
     if U_new.shape != U.shape:
         raise RuntimeError(f"plan of shape {tuple(U_new.shape)}")
     return U_new, info, counts, ms

@@ -11,14 +11,10 @@ from typing import Optional
 
 import torch
 
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import kinematics, spatial
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
 from qppvm_tpu_torch.opt import linalg, ns_inverse
-
-# Mass-matrix inverses of CUDA tensors that the NS kernel does not take
-# (not float32, or n above its maximum) and that ran the plain NS
-# (``mass_matrix_inverse``); readers reset it to 0.
-plain_inverses = 0
 
 
 def _base_gravity_acc(model: RobotModel, state: RobotState):
@@ -138,15 +134,14 @@ def mass_matrix_inverse(B, iters: int = 24, reg: float = 0.0):
     matrices; also the DDP planner's Q_uu and SRBD inertia), plus
     ``reg`` I where ``reg`` is not 0. A CUDA tensor the NS kernel takes goes
     to it (``ns_inverse.ns_inverse(K, iters)``, one launch); any other CUDA
-    tensor runs the plain version and adds one to ``plain_inverses``. A CPU
-    tensor goes through ``ns_inverse.ns_inverse``, which runs the same plain
-    version."""
-    global plain_inverses
+    tensor runs the plain version and counts one ``model.plain_inverse``
+    (``telemetry``). A CPU tensor goes through ``ns_inverse.ns_inverse``,
+    which runs the same plain version."""
     K = B if reg == 0.0 else B + reg * torch.eye(B.shape[-1], dtype=B.dtype,
                                                   device=B.device)
     if K.device.type == "cuda" and not ns_kernel_takes(
             K.dtype, K.shape[-1], ns_inverse.library().ns_inverse_max_n()):
-        plain_inverses += 1
+        telemetry.count("model.plain_inverse")
         return linalg.spd_inverse_ns(K, iters=iters - 2, refine=2)
     return ns_inverse.ns_inverse(K, iters=iters)
 
@@ -316,14 +311,27 @@ def compute_model_data(model: RobotModel, state: RobotState,
     inverse, 18 + 2 Newton-Schulz iterations without regularization
     (``mass_matrix_inverse(B, 20)``: the NS kernel for float32 on the
     card)."""
-    kin = kinematics.fk(model, state)
-    M = mass_matrix(model, state, kin=kin)
-    h = nonlinear_term(model, state, kin=kin)
-    J_all = kinematics.all_link_jacobians(model, kin)
-    vel_all = kinematics.link_velocities(model, kin, state, J_all)
-    bias_all = kinematics.bias_accelerations(model, kin, state)
-    total_mass, com_pos = kinematics.com(model, kin)
-    return ModelData(kin=kin, B=M, h=h, J_all=J_all, vel_all=vel_all,
-                     bias_all=bias_all, com_pos=com_pos,
-                     total_mass=total_mass, base_vel=state.base_vel,
-                     Binv=mass_matrix_inverse(M, 20) if need_binv else None)
+    span = telemetry.span
+    with span("model_update"):
+        with span("model_update.fk"):
+            kin = kinematics.fk(model, state)
+        with span("model_update.mass_matrix"):
+            M = mass_matrix(model, state, kin=kin)
+        with span("model_update.nonlinear"):
+            h = nonlinear_term(model, state, kin=kin)
+        with span("model_update.jacobians"):
+            J_all = kinematics.all_link_jacobians(model, kin)
+        with span("model_update.velocities"):
+            vel_all = kinematics.link_velocities(model, kin, state, J_all)
+        with span("model_update.bias"):
+            bias_all = kinematics.bias_accelerations(model, kin, state)
+        with span("model_update.com"):
+            total_mass, com_pos = kinematics.com(model, kin)
+        Binv = None
+        if need_binv:
+            with span("model_update.binv"):
+                Binv = mass_matrix_inverse(M, 20)
+        return ModelData(kin=kin, B=M, h=h, J_all=J_all, vel_all=vel_all,
+                         bias_all=bias_all, com_pos=com_pos,
+                         total_mass=total_mass, base_vel=state.base_vel,
+                         Binv=Binv)

@@ -25,6 +25,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import dynamics, kinematics
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
 from qppvm_tpu_torch.opt import hierarchy, linalg
@@ -398,8 +399,9 @@ def make_rollout_fn(plugin, cfg: RolloutConfig, cost_fn: Callable,
         costs, prims, fails = [], [], []
         for t in range(H):
             gate_t = None if gate_seq is None else gate_seq[:, t]
-            carry, (c, prim, failed) = one_step(
-                carry, (controls[:, t], push[:, t], gate_t, t_fracs[t]))
+            with telemetry.span("rollout.step"):
+                carry, (c, prim, failed) = one_step(
+                    carry, (controls[:, t], push[:, t], gate_t, t_fracs[t]))
             costs.append(c)
             prims.append(prim)
             fails.append(failed)

@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model.robot import RobotState
 from qppvm_tpu_torch.mpc.rollout import (THETA_KEYS, RolloutConfig,
                                          default_cost, make_rollout_fn,
@@ -132,45 +133,48 @@ class SamplingMPC:
         (U_new (H, nu), info), or ((U_new, theta_new), info) with theta;
         info stays on the device, its ``costs`` (K,) holds each sample's
         cost, failure penalty included, and with theta its
-        ``theta_best`` the best sample's decision."""
-        m = self.mppi
-        U_loc, scen_loc, theta_loc = U, scenario, theta
-        if self.mesh is not None:
-            U_loc, scen_loc, theta_loc = meshlib.shard_batch(
-                (U, scenario, theta), self.mesh, self.mesh.mesh_dim_names)
-        st, rf, w = expand_batch(state, refs, warm, U_loc.shape[0])
-        costs, health = self.rollout(st, rf, w, U_loc, scen_loc, theta_loc)
-        failed, prim = health["solver_failed"], health["prim_res_max"]
-        if self.mesh is not None:
-            costs, failed, prim = (meshlib.all_gather_batch(a, self.mesh)
-                                   for a in (costs, failed, prim))
-        costs = torch.where(torch.isfinite(costs), costs,
-                            torch.full_like(costs, m.fail_penalty))
-        costs = costs + m.fail_penalty * failed.to(costs.dtype)
-        beta = torch.amin(costs)
-        wts = torch.exp(-(costs - beta) / m.lambda_)
-        wts = wts / torch.sum(wts)
-        U_new = torch.einsum("k,khu->hu", wts, U)
-        best = torch.argmin(costs)
-        info = {
-            "cost_min": beta,
-            "cost_mean": torch.mean(costs),
-            "ess": 1.0 / torch.sum(wts ** 2),
-            "solver_fail_frac": torch.mean(failed.to(costs.dtype)),
-            "prim_res_max": torch.amax(prim),
-            "U_best": U[best],
-            "best_failed": failed[best],
-            "solver_failed": failed,
-            "costs": costs,
-        }
-        if theta is None:
-            return U_new, info
-        # the exponential average of a step-or-not decision is mushy; the
-        # best sample's decision is surfaced for callers to act on
-        theta_new = {k: torch.einsum("k,k...->...", wts, v)
-                     for k, v in theta.items()}
-        info["theta_best"] = {k: v[best] for k, v in theta.items()}
-        return (U_new, theta_new), info
+        ``theta_best`` the best sample's decision. The update is the span
+        ``plan``, a unit of the program's telemetry; each horizon step of
+        the rollout a ``rollout.step`` in it."""
+        with telemetry.span("plan"):
+            m = self.mppi
+            U_loc, scen_loc, theta_loc = U, scenario, theta
+            if self.mesh is not None:
+                U_loc, scen_loc, theta_loc = meshlib.shard_batch(
+                    (U, scenario, theta), self.mesh, self.mesh.mesh_dim_names)
+            st, rf, w = expand_batch(state, refs, warm, U_loc.shape[0])
+            costs, health = self.rollout(st, rf, w, U_loc, scen_loc, theta_loc)
+            failed, prim = health["solver_failed"], health["prim_res_max"]
+            if self.mesh is not None:
+                costs, failed, prim = (meshlib.all_gather_batch(a, self.mesh)
+                                       for a in (costs, failed, prim))
+            costs = torch.where(torch.isfinite(costs), costs,
+                                torch.full_like(costs, m.fail_penalty))
+            costs = costs + m.fail_penalty * failed.to(costs.dtype)
+            beta = torch.amin(costs)
+            wts = torch.exp(-(costs - beta) / m.lambda_)
+            wts = wts / torch.sum(wts)
+            U_new = torch.einsum("k,khu->hu", wts, U)
+            best = torch.argmin(costs)
+            info = {
+                "cost_min": beta,
+                "cost_mean": torch.mean(costs),
+                "ess": 1.0 / torch.sum(wts ** 2),
+                "solver_fail_frac": torch.mean(failed.to(costs.dtype)),
+                "prim_res_max": torch.amax(prim),
+                "U_best": U[best],
+                "best_failed": failed[best],
+                "solver_failed": failed,
+                "costs": costs,
+            }
+            if theta is None:
+                return U_new, info
+            # the exponential average of a step-or-not decision is mushy; the
+            # best sample's decision is surfaced for callers to act on
+            theta_new = {k: torch.einsum("k,k...->...", wts, v)
+                         for k, v in theta.items()}
+            info["theta_best"] = {k: v[best] for k, v in theta.items()}
+            return (U_new, theta_new), info
 
     def plan(self, generator: torch.Generator, state, refs, warm, U_nom):
         """One MPC re-planning step. Returns (U_new, info); the first row

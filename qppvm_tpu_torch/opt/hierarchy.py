@@ -13,7 +13,10 @@ backstop for heavily saturated levels, where ADMM crawls). Under "admm",
 each level in the level solver's profile to ``level_qp.solve_level`` (the
 CUDA kernel on the card, its plain version on the CPU). Under "kernel" a
 level outside the profile (a cold or polished solve, no warm state, or no
-inequality row) runs qp.solve and adds one to ``fallbacks``.
+inequality row) runs qp.solve. Each level solve counts one
+``cascade.level``, and each such fallback one ``cascade.fallback``
+(``telemetry``). The solve is the span ``cascade``, each level's solver
+call a span ``cascade.level`` in it.
 """
 from __future__ import annotations
 
@@ -22,12 +25,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from qppvm_tpu_torch import bench_util
+from qppvm_tpu_torch import bench_util, telemetry
 from qppvm_tpu_torch.opt import level_qp, pdip, qp
-
-# Levels that backend "kernel" ran through qp.solve because
-# they were outside the level solver's profile; readers reset it to 0.
-fallbacks = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +64,7 @@ def warm_start_init(stack: StackData) -> Tuple[qp.QPState, ...]:
 
 def _solve_level(prob: qp.QPProblem, st: Optional[qp.QPState], opts: dict,
                  backend: str):
-    global fallbacks
+    telemetry.count("cascade.level")
     if opts.pop("method") == "pdip":
         x, info = pdip.solve(prob, iters=opts["pdip_iters"])
         if st is None:
@@ -84,7 +83,7 @@ def _solve_level(prob: qp.QPProblem, st: Optional[qp.QPState], opts: dict,
                                         iters=opts["iters"])
     if cfg is None:
         if backend == "kernel":
-            fallbacks += 1
+            telemetry.count("cascade.fallback")
         return qp.solve(prob, st, **opts)
     if backend == "torch":
         # the level kernel's function: a FLOP count reads it at the
@@ -119,66 +118,67 @@ def solve(stack: StackData, warm: Optional[Tuple[qp.QPState, ...]] = None, *,
     rows). ``method`` "pdip" solves each level cold in ``pdip_iters``
     interior-point iterations; its new state is the warm (or zero) state
     with x and z = clip(A x, l, u)."""
-    B, n = stack.lb.shape
-    dtype, device = stack.lb.dtype, stack.lb.device
-    global_opts = dict(eps=eps, eps_abs_scale=eps_abs_scale, iters=iters,
-                       refine=refine, rho=rho, rho_updates=rho_updates,
-                       polish_rounds=polish_rounds,
-                       assume_warm_kinv=assume_warm_kinv,
-                       polish_ns_iters=polish_ns_iters,
-                       warm_kinv_iters=warm_kinv_iters,
-                       rho_adapt_tol=rho_adapt_tol,
-                       rho_scale_min=rho_scale_min,
-                       cold_ns_iters=cold_ns_iters, scale_iters=scale_iters,
-                       pinv_ns_iters=pinv_ns_iters, method=method,
-                       pdip_iters=pdip_iters, eq_elim=eq_elim,
-                       backend=backend)
-    locked_rows: List[torch.Tensor] = []
-    locked_vals: List[torch.Tensor] = []
-    new_states, infos = [], []
-    x = None
-    for k, lv in enumerate(stack.levels):
-        opts = dict(global_opts)
-        if per_level_opts is not None and k < len(per_level_opts):
-            opts.update(per_level_opts[k] or {})
-        lvl_eps = opts.pop("eps")
-        lvl_eps_scale = opts.pop("eps_abs_scale")
-        lvl_reg_diag = opts.pop("reg_diag", reg_diag)
-        lvl_eq_elim = opts.pop("eq_elim")
-        lvl_backend = opts.pop("backend")
+    with telemetry.span("cascade"):
+        B, n = stack.lb.shape
+        dtype, device = stack.lb.dtype, stack.lb.device
+        global_opts = dict(
+            eps=eps, eps_abs_scale=eps_abs_scale, iters=iters, refine=refine,
+            rho=rho, rho_updates=rho_updates, polish_rounds=polish_rounds,
+            assume_warm_kinv=assume_warm_kinv,
+            polish_ns_iters=polish_ns_iters, warm_kinv_iters=warm_kinv_iters,
+            rho_adapt_tol=rho_adapt_tol, rho_scale_min=rho_scale_min,
+            cold_ns_iters=cold_ns_iters, scale_iters=scale_iters,
+            pinv_ns_iters=pinv_ns_iters, method=method, pdip_iters=pdip_iters,
+            eq_elim=eq_elim, backend=backend)
+        locked_rows: List[torch.Tensor] = []
+        locked_vals: List[torch.Tensor] = []
+        new_states, infos = [], []
+        x = None
+        for k, lv in enumerate(stack.levels):
+            opts = dict(global_opts)
+            if per_level_opts is not None and k < len(per_level_opts):
+                opts.update(per_level_opts[k] or {})
+            lvl_eps = opts.pop("eps")
+            lvl_eps_scale = opts.pop("eps_abs_scale")
+            lvl_reg_diag = opts.pop("reg_diag", reg_diag)
+            lvl_eq_elim = opts.pop("eq_elim")
+            lvl_backend = opts.pop("backend")
 
-        At = lv.A.transpose(-1, -2)
-        P = At @ lv.A
-        reg = lvl_eps * lvl_eps_scale * (
-            torch.diagonal(P, dim1=-2, dim2=-1).sum(-1) / n + 1.0)
-        shape = (torch.ones(n, dtype=dtype, device=device)
-                 if lvl_reg_diag is None else lvl_reg_diag.to(dtype))
-        rvec = reg[:, None] * shape
-        P = P + torch.diag_embed(rvec)
-        qv = -(At @ lv.b[..., None])[..., 0]
-        if warm is not None:
-            # proximal term centred on the warm solution, not on zero
-            qv = qv - rvec * warm[k].x
+            At = lv.A.transpose(-1, -2)
+            P = At @ lv.A
+            reg = lvl_eps * lvl_eps_scale * (
+                torch.diagonal(P, dim1=-2, dim2=-1).sum(-1) / n + 1.0)
+            shape = (torch.ones(n, dtype=dtype, device=device)
+                     if lvl_reg_diag is None else lvl_reg_diag.to(dtype))
+            rvec = reg[:, None] * shape
+            P = P + torch.diag_embed(rvec)
+            qv = -(At @ lv.b[..., None])[..., 0]
+            if warm is not None:
+                # proximal term centred on the warm solution, not on zero
+                qv = qv - rvec * warm[k].x
 
-        rows, lo, hi = [stack.C], [stack.lC], [stack.uC]
-        if stack.has_box:
-            eye = torch.eye(n, dtype=dtype, device=device).expand(B, n, n)
-            rows, lo, hi = rows + [eye], lo + [stack.lb], hi + [stack.ub]
-        prob = qp.QPProblem(P=P, q=qv, A=torch.cat(rows + locked_rows, dim=1),
-                            l=torch.cat(lo + locked_vals, dim=1),
-                            u=torch.cat(hi + locked_vals, dim=1))
-        if lvl_eq_elim and opts["method"] != "pdip":
-            # row order is [C; I(box); locks]: the stack's structural
-            # equalities lead C, the cascade's locks trail
-            opts["n_eq_head"] = stack.n_eq
-            opts["n_eq_tail"] = sum(r.shape[1] for r in locked_rows)
-        st = warm[k] if warm is not None else None
-        x, st_new, info = _solve_level(prob, st, opts, lvl_backend)
-        new_states.append(st_new)
-        infos.append(info)
-        locked_rows.append(lv.A)
-        locked_vals.append((lv.A @ x[..., None])[..., 0])
-    return x, tuple(new_states), tuple(infos)
+            rows, lo, hi = [stack.C], [stack.lC], [stack.uC]
+            if stack.has_box:
+                eye = torch.eye(n, dtype=dtype,
+                                device=device).expand(B, n, n)
+                rows, lo, hi = rows + [eye], lo + [stack.lb], hi + [stack.ub]
+            prob = qp.QPProblem(P=P, q=qv,
+                                A=torch.cat(rows + locked_rows, dim=1),
+                                l=torch.cat(lo + locked_vals, dim=1),
+                                u=torch.cat(hi + locked_vals, dim=1))
+            if lvl_eq_elim and opts["method"] != "pdip":
+                # row order is [C; I(box); locks]: the stack's structural
+                # equalities lead C, the cascade's locks trail
+                opts["n_eq_head"] = stack.n_eq
+                opts["n_eq_tail"] = sum(r.shape[1] for r in locked_rows)
+            st = warm[k] if warm is not None else None
+            with telemetry.span("cascade.level"):
+                x, st_new, info = _solve_level(prob, st, opts, lvl_backend)
+            new_states.append(st_new)
+            infos.append(info)
+            locked_rows.append(lv.A)
+            locked_vals.append((lv.A @ x[..., None])[..., 0])
+        return x, tuple(new_states), tuple(infos)
 
 
 def solve_failed(infos, tol: float = 1e-3) -> torch.Tensor:

@@ -7,7 +7,7 @@ working set in shared memory) or raises; on a CPU tensor it runs
 ``solve_level_reference``, the same function in plain PyTorch. There is no
 fallback from the kernel to the plain version: the hierarchy decides which
 levels are in the kernel's profile and counts the ones that are not
-(``hierarchy.fallbacks``).
+(``cascade.fallback`` in ``telemetry``).
 
 The kernel's profile is the deployed real-time one of qp.solve:
 rho_updates = 0, no polish, Newton-Schulz inverses, warm-started KKT
@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from qppvm_tpu_torch import bench_util
+from qppvm_tpu_torch import bench_util, telemetry
 from qppvm_tpu_torch.opt import qp
 
 # Newton-Schulz iterations of the equality Gram inverse: linalg.spd_inverse's
@@ -29,9 +29,6 @@ from qppvm_tpu_torch.opt import qp
 GRAM_NS_ITERS = 26
 # Shared memory a block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
-
-# Kernel launches made by solve_level; readers reset it to 0 before a run.
-launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,7 +134,6 @@ def _check_profile(cfg: LevelQPConfig, n: int, m: int) -> None:
 
 
 def _launch(cfg: LevelQPConfig, P, q, A, l, u, wx, wz, wy, wK, wr):
-    global launches
     B, n, _ = P.shape
     m = A.shape[1]
     shapes = dict(P=(B, n, n), q=(B, n), A=(B, m, n), l=(B, m), u=(B, m),
@@ -174,7 +170,7 @@ def _launch(cfg: LevelQPConfig, P, q, A, l, u, wx, wz, wy, wK, wr):
             cfg.eq_pin, int(cfg.z_clip), stream)
     if rc != 0:
         raise RuntimeError(f"level_qp kernel launch failed: CUDA error {rc}")
-    launches += 1
+    telemetry.count("level_qp.launch")
     return outs
 
 

@@ -15,14 +15,11 @@ import ctypes
 
 import torch
 
-from qppvm_tpu_torch import bench_util
+from qppvm_tpu_torch import bench_util, telemetry
 from qppvm_tpu_torch.opt import linalg
 
 # Shared memory a block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
-
-# Kernel launches made by ns_inverse; readers reset it to 0 before a run.
-launches = 0
 
 _lib = None
 
@@ -51,7 +48,6 @@ def library() -> ctypes.CDLL:
 
 
 def _launch(K, iters: int):
-    global launches
     if K.dtype != torch.float32:
         raise ValueError(f"K: need float32, got {K.dtype}")
     if K.dim() != 3 or K.shape[1] != K.shape[2]:
@@ -72,7 +68,7 @@ def _launch(K, iters: int):
                                    int(iters), stream)
     if rc != 0:
         raise RuntimeError(f"ns_inverse kernel launch failed: CUDA error {rc}")
-    launches += 1
+    telemetry.count("ns_inverse.launch")
     return out
 
 

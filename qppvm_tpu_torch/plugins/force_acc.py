@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import dynamics
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
 from qppvm_tpu_torch.opt import hierarchy
@@ -289,32 +290,39 @@ class ForceAccPlugin:
         iters = opts.pop("iters")
         x, warm_new, infos = hierarchy.solve(stack_data, warm, eps=self.eps,
                                              iters=iters, **opts)
-        qddot = self.qddot.value(x)
-        wr = torch.stack([w.value(x) for w in self.wrenches], dim=1)
-        tau_c_full = torch.zeros((state.batch, model.nv), dtype=self.dtype,
-                                 device=self.device)
-        for cl, w in zip(self.contact_links, self.wrenches):
-            Jc = dynamics.frame_data(model, data, cl)[2][:, :self.wrench_dim]
-            tau_c_full = tau_c_full + (Jc.transpose(-1, -2)
-                                       @ w.value(x)[..., None])[..., 0]
-        tau_full = dynamics.rnea(model, state, qddot, gravity=True,
-                                 kin=data.kin)
-        tau = (tau_full - tau_c_full)[:, 6:]
+        with telemetry.span("torque"):
+            qddot = self.qddot.value(x)
+            wr = torch.stack([w.value(x) for w in self.wrenches], dim=1)
+            tau_c_full = torch.zeros((state.batch, model.nv),
+                                     dtype=self.dtype, device=self.device)
+            for cl, w in zip(self.contact_links, self.wrenches):
+                Jc = dynamics.frame_data(model, data,
+                                         cl)[2][:, :self.wrench_dim]
+                tau_c_full = tau_c_full + (Jc.transpose(-1, -2)
+                                           @ w.value(x)[..., None])[..., 0]
+            tau_full = dynamics.rnea(model, state, qddot, gravity=True,
+                                     kin=data.kin)
+            tau = (tau_full - tau_c_full)[:, 6:]
         return tau, warm_new, infos, (data, x, qddot, wr, tau_c_full)
 
     def _step_impl(self, state: RobotState, refs, warm):
         """One batched RT tick: (tau, warm_new, aux); tau is zeroed for the
-        items whose solve failed."""
-        tau, warm_new, infos, (data, x, qddot, wr, tau_c_full) = \
-            self.step_core(state, refs, warm)
-        failed = hierarchy.solve_failed(infos, tol=self.RT_FAIL_TOL)
-        tau = torch.where(failed[:, None], torch.zeros_like(tau), tau)
-        ctx = AssembleCtx(model=self.model, data=data, state=state, refs=refs,
-                          nx=self.opt.size, dtype=self.dtype)
-        aux = ForceAccAux(
-            tau=tau, tau_c=tau_c_full[:, 6:], qddot=qddot, wrenches=wr,
-            dyn_feas_residual=self.dyn_feas.check_constraint(ctx, x),
-            solver_failed=failed,
-            prim_res=torch.amax(torch.stack([i.prim_res for i in infos]),
-                                dim=0))
+        items whose solve failed. The span ``tick`` opens a unit of the
+        program's telemetry."""
+        with telemetry.span("tick"):
+            tau, warm_new, infos, (data, x, qddot, wr, tau_c_full) = \
+                self.step_core(state, refs, warm)
+            with telemetry.span("aux"):
+                failed = hierarchy.solve_failed(infos, tol=self.RT_FAIL_TOL)
+                tau = torch.where(failed[:, None], torch.zeros_like(tau), tau)
+                ctx = AssembleCtx(model=self.model, data=data, state=state,
+                                  refs=refs, nx=self.opt.size,
+                                  dtype=self.dtype)
+                aux = ForceAccAux(
+                    tau=tau, tau_c=tau_c_full[:, 6:], qddot=qddot,
+                    wrenches=wr,
+                    dyn_feas_residual=self.dyn_feas.check_constraint(ctx, x),
+                    solver_failed=failed,
+                    prim_res=torch.amax(
+                        torch.stack([i.prim_res for i in infos]), dim=0))
         return tau, warm_new, aux

@@ -17,6 +17,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from qppvm_tpu_torch import telemetry
+
 
 def _host(value) -> np.ndarray:
     """``value`` (a tensor on any device, an array or a number) as a host
@@ -86,10 +88,6 @@ class TraceBuffer:
         return self.path + ".npz"
 
 
-# device-to-host copies made by scan_with_stream; readers reset it to 0
-host_copies = 0
-
-
 def scan_with_stream(body, carry, length: int, trace: TraceBuffer,
                      chunk: int = 64, ordered: bool = True):
     """Run ``length`` ticks of ``body(carry, None) -> (carry, channels)``
@@ -100,8 +98,8 @@ def scan_with_stream(body, carry, length: int, trace: TraceBuffer,
     a chunk; this one is eager, its ticks dispatched from the host.
     ``ordered`` is kept for the reference's signature: an eager loop
     delivers its chunks in order. ``length`` must be a multiple of
-    ``chunk``. Returns the final carry."""
-    global host_copies
+    ``chunk``. Returns the final carry. Each copy counts one
+    ``logger.host_copy`` (``telemetry``)."""
     if length % chunk != 0:
         raise ValueError(f"length {length} not a multiple of chunk {chunk}")
     for _ in range(length // chunk):
@@ -114,7 +112,7 @@ def scan_with_stream(body, carry, length: int, trace: TraceBuffer,
         # every channel as float64 columns of one block: one copy a chunk
         block = torch.cat([v.reshape(chunk, -1).to(torch.float64)
                            for v in stacked], dim=1).cpu().numpy()
-        host_copies += 1
+        telemetry.count("logger.host_copy")
         col = 0
         for name, v in zip(names, stacked):
             width = v[0].numel()

@@ -17,6 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import dynamics, kinematics
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
 
@@ -259,12 +260,15 @@ class SimRobot:
             self._q_ref = self._tensor(q_ref)
 
     def move(self):
-        """Advance physics by one control period."""
-        for _ in range(self.substeps):
-            self.state, self._anchors = self._step(
-                self.state, self._anchors, self._tau_ref, self._q_ref,
-                self.k, self.d)
-        self._publish_fb()
+        """Advance physics by one control period (the span ``plant``, a
+        ``plant.substep`` in it for each substep)."""
+        with telemetry.span("plant"):
+            for _ in range(self.substeps):
+                with telemetry.span("plant.substep"):
+                    self.state, self._anchors = self._step(
+                        self.state, self._anchors, self._tau_ref,
+                        self._q_ref, self.k, self.d)
+            self._publish_fb()
 
     def _publish_fb(self):
         if self.model.floating:

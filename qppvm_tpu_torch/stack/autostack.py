@@ -8,6 +8,7 @@ from typing import Any, Dict, List, Sequence
 
 import torch
 
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model.dynamics import ModelData
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
 from qppvm_tpu_torch.opt import hierarchy
@@ -56,41 +57,44 @@ class AutoStack:
         equality-first, so the solver can eliminate the leading ``n_eq``
         structural equality rows; every row of an ``is_equality``
         constraint must have lb == ub (``validate`` checks it)."""
-        ctx = AssembleCtx(model=model, data=data, state=state, refs=refs,
-                          nx=nx, dtype=dtype)
-        levels = []
-        for lv in self.levels:
-            As, bs = zip(*(t.assemble(ctx) for t in lv))
-            levels.append(hierarchy.LevelData(A=torch.cat(As, dim=1),
-                                              b=torch.cat(bs, dim=1)))
-        B, dev = ctx.batch, state.q.device
-        lb = torch.full((B, nx), -1e20, dtype=dtype, device=dev)
-        ub = torch.full((B, nx), 1e20, dtype=dtype, device=dev)
-        C_rows, lC_rows, uC_rows = [], [], []
-        n_eq = 0
-        has_box = False
-        for c in self._ordered():
-            kind, C, lo, hi = c.assemble(ctx)
-            if kind == BOX:
-                has_box = True
-                lb = torch.maximum(lb, lo.to(dtype))
-                ub = torch.minimum(ub, hi.to(dtype))
-            elif kind == ROWS:
-                C_rows.append(C.to(dtype))
-                lC_rows.append(lo.to(dtype))
-                uC_rows.append(hi.to(dtype))
-                if c.is_equality:
-                    n_eq += C.shape[1]
+        with telemetry.span("stack"):
+            ctx = AssembleCtx(model=model, data=data, state=state, refs=refs,
+                              nx=nx, dtype=dtype)
+            levels = []
+            for lv in self.levels:
+                As, bs = zip(*(t.assemble(ctx) for t in lv))
+                levels.append(hierarchy.LevelData(A=torch.cat(As, dim=1),
+                                                  b=torch.cat(bs, dim=1)))
+            B, dev = ctx.batch, state.q.device
+            lb = torch.full((B, nx), -1e20, dtype=dtype, device=dev)
+            ub = torch.full((B, nx), 1e20, dtype=dtype, device=dev)
+            C_rows, lC_rows, uC_rows = [], [], []
+            n_eq = 0
+            has_box = False
+            for c in self._ordered():
+                kind, C, lo, hi = c.assemble(ctx)
+                if kind == BOX:
+                    has_box = True
+                    lb = torch.maximum(lb, lo.to(dtype))
+                    ub = torch.minimum(ub, hi.to(dtype))
+                elif kind == ROWS:
+                    C_rows.append(C.to(dtype))
+                    lC_rows.append(lo.to(dtype))
+                    uC_rows.append(hi.to(dtype))
+                    if c.is_equality:
+                        n_eq += C.shape[1]
+                else:
+                    raise ValueError(f"unknown constraint kind {kind}")
+            if C_rows:
+                C, lC, uC = (torch.cat(C_rows, dim=1),
+                             torch.cat(lC_rows, dim=1),
+                             torch.cat(uC_rows, dim=1))
             else:
-                raise ValueError(f"unknown constraint kind {kind}")
-        if C_rows:
-            C, lC, uC = (torch.cat(C_rows, dim=1), torch.cat(lC_rows, dim=1),
-                         torch.cat(uC_rows, dim=1))
-        else:
-            C = torch.zeros((B, 0, nx), dtype=dtype, device=dev)
-            lC = uC = torch.zeros((B, 0), dtype=dtype, device=dev)
-        return hierarchy.StackData(levels=tuple(levels), C=C, lC=lC, uC=uC,
-                                   lb=lb, ub=ub, n_eq=n_eq, has_box=has_box)
+                C = torch.zeros((B, 0, nx), dtype=dtype, device=dev)
+                lC = uC = torch.zeros((B, 0), dtype=dtype, device=dev)
+            return hierarchy.StackData(levels=tuple(levels), C=C, lC=lC,
+                                       uC=uC, lb=lb, ub=ub, n_eq=n_eq,
+                                       has_box=has_box)
 
     @staticmethod
     def validate(stack_data: hierarchy.StackData, tol: float = 1e-6) -> None:

@@ -44,9 +44,9 @@ from qppvm_tpu.opt.qp import QPState as JQPState
 from qppvm_tpu.plugins.force_acc import ForceAccPlugin as JForceAcc
 from qppvm_tpu.runtime import contact_switch as jcs
 from qppvm_tpu.runtime import trajectory as jtraj
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import convert, kinematics, zoo
 from qppvm_tpu_torch.mpc import rollout, sampling
-from qppvm_tpu_torch.opt import hierarchy
 from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
 from qppvm_tpu_torch.runtime import contact_switch, trajectory
 from qppvm_tpu_torch.runtime.robot_interface import standing_state
@@ -398,12 +398,12 @@ def test_rollout_with_gates_swing_and_terminal_cost_matches_reference(quad):
         terminal_cost=rollout.make_capture_terminal_cost(quad["tp"]))
     st, refs, warm = sampling.expand_batch(quad["st"], quad["refs"],
                                            quad["warm"], K)
-    hierarchy.fallbacks = 0
+    telemetry.reset("cascade.fallback")
     cost, health = roll(st, refs, warm, torch.tensor(quad["controls"]),
                         {k: torch.tensor(v) for k, v in quad["scen"].items()},
                         {k: torch.tensor(v) for k, v in
                          quad["thetas"].items()})
-    assert hierarchy.fallbacks == 0
+    assert telemetry.counts()["cascade.fallback"] == 0
     cost_ref, health_ref = quad["roll_ref"]
     assert cost.shape == (K,)
     _close(cost.numpy(), cost_ref)

@@ -65,6 +65,7 @@ on the CPU.
 import pytest
 import torch
 
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.opt import level_qp, ns_inverse
 from qppvm_tpu_torch.opt import level_qp_parity as parity
 
@@ -131,10 +132,10 @@ def test_kernel_matches_plain_version_cold_then_warm(device, n, m, h, t, B,
         prob = (P, *prob[1:])
     state = parity.zero_state(B, n, m, device)
     for k in range(2):   # cold from zero, then warm
-        before = level_qp.launches
+        before = telemetry.counts()["level_qp.launch"]
         out = level_qp.solve_level(cfg, *prob, *state)
         torch.cuda.synchronize()
-        assert level_qp.launches == before + 1
+        assert telemetry.counts()["level_qp.launch"] == before + 1
         parity.check_level_outputs(cfg, prob, state, out)
         if warm == "indefinite":
             K0 = out[3][0]
@@ -188,7 +189,6 @@ def test_qppvm_tick_kernel_matches_plain(device):
     mass matrix's inverse), tau within chip_smoke.py's chain bars of the
     same tick through the plain level solver and the plain NS inverse."""
     from qppvm_tpu_torch.model import dynamics, zoo
-    from qppvm_tpu_torch.opt import hierarchy
     from qppvm_tpu_torch.plugins.qppvm import QPPVMPlugin
 
     model = zoo.dual_arm(device=device)
@@ -197,11 +197,12 @@ def test_qppvm_tick_kernel_matches_plain(device):
     st = model.home_state()
     refs, warm, start = plugins[0].on_start(st)
     refs = dict(refs, LEFT_ARM=plugins[0].make_refs(start, 0.5))
-    level_qp.launches = ns_inverse.launches = hierarchy.fallbacks = 0
+    telemetry.reset("level_qp.launch", "ns_inverse.launch", "cascade.fallback")
     tau, _, aux = plugins[0].control_loop(st, refs, warm)
     torch.cuda.synchronize()
-    assert (level_qp.launches, hierarchy.fallbacks) == (2, 0)
-    assert ns_inverse.launches == 1
+    counted = telemetry.counts()
+    assert (counted["level_qp.launch"], counted["cascade.fallback"]) == (2, 0)
+    assert telemetry.counts()["ns_inverse.launch"] == 1
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(dynamics, "mass_matrix_inverse",
                    lambda B, iters=24, reg=0.0: ns_inverse.ns_inverse_reference(
@@ -236,10 +237,10 @@ def _ns_passes(K, X, ref):
 @pytest.mark.parametrize("B", [1, 37])
 def test_ns_inverse_matches_plain_version(device, n, iters, B):
     K = _ns_batch(device, B, n, seed=n + B)
-    before = ns_inverse.launches
+    before = telemetry.counts()["ns_inverse.launch"]
     X = ns_inverse.ns_inverse(K, iters)
     torch.cuda.synchronize()
-    assert ns_inverse.launches == before + 1
+    assert telemetry.counts()["ns_inverse.launch"] == before + 1
     ref = ns_inverse.ns_inverse_reference(K, iters)
     assert bool(_ns_passes(K, X, ref).all())
 
@@ -297,7 +298,8 @@ def test_kernel_rejects_bad_inputs(device):
 def test_plant_mass_matrix_inverse_routing(device, dtype):
     """One SimRobot step of the quadruped: float32 mass matrices go to the
     NS kernel (one launch a substep), float64 ones to the plain NS, counted
-    in ``dynamics.plain_inverses``; both match the plain plant step."""
+    in ``model.plain_inverse`` (``telemetry``); both match the plain plant
+    step."""
     from qppvm_tpu_torch.model import dynamics, zoo
     from qppvm_tpu_torch.runtime import robot_interface as ri
 
@@ -306,13 +308,13 @@ def test_plant_mass_matrix_inverse_routing(device, dtype):
     robots = [ri.SimRobot(model, state=ri.standing_state(model, feet),
                           substeps=4, contact_links=feet, dtype=dtype)
               for _ in range(2)]
-    ns_inverse.launches = 0
-    dynamics.plain_inverses = 0
+    telemetry.reset("ns_inverse.launch")
+    telemetry.reset("model.plain_inverse")
     robots[0].move()
     torch.cuda.synchronize()
     kernel = dtype == torch.float32
-    assert ns_inverse.launches == (4 if kernel else 0)
-    assert dynamics.plain_inverses == (0 if kernel else 4)
+    assert telemetry.counts()["ns_inverse.launch"] == (4 if kernel else 0)
+    assert telemetry.counts()["model.plain_inverse"] == (0 if kernel else 4)
     with pytest.MonkeyPatch.context() as mp:   # the plain plant
         mp.setattr(dynamics, "mass_matrix_inverse",
                    lambda K: ns_inverse.ns_inverse_reference(K, 24))
@@ -329,7 +331,7 @@ def test_centaur_tick_kernel_matches_plain(device):
     their cones, 2 launches and no fallback."""
     from qppvm_tpu_torch.model import zoo
     from qppvm_tpu_torch.mpc.rollout import standing_state
-    from qppvm_tpu_torch.opt import hierarchy, qp
+    from qppvm_tpu_torch.opt import qp
     from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
 
     Bt = 37
@@ -351,11 +353,12 @@ def test_centaur_tick_kernel_matches_plain(device):
         Bt, model.nj, generator=g, device=device),
         **{f: ex(getattr(st, f))
            for f in ("qd", "base_rot", "base_pos", "base_vel")})
-    level_qp.launches = 0
-    hierarchy.fallbacks = 0
+    telemetry.reset("level_qp.launch")
+    telemetry.reset("cascade.fallback")
     tau, _, aux = plugins[0]._step_impl(states, refs, warm)
     torch.cuda.synchronize()
-    assert (level_qp.launches, hierarchy.fallbacks) == (2, 0)
+    counted = telemetry.counts()
+    assert (counted["level_qp.launch"], counted["cascade.fallback"]) == (2, 0)
     tau_ref, _, aux_ref = plugins[1]._step_impl(states, refs, warm)
     assert not aux.solver_failed.any() and not aux_ref.solver_failed.any()
     assert bool(((tau - tau_ref).abs() <= 5e-3 + 1e-3 * tau_ref.abs()).all())
@@ -375,7 +378,6 @@ def test_swing_gate_rollout_kernel_matches_plain(device):
     from qppvm_tpu_torch.model import zoo
     from qppvm_tpu_torch.mpc import rollout
     from qppvm_tpu_torch.mpc.sampling import expand_batch
-    from qppvm_tpu_torch.opt import hierarchy
     from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
 
     K, H = 37, 2
@@ -404,12 +406,14 @@ def test_swing_gate_rollout_kernel_matches_plain(device):
         swing, _ = rollout.make_swing_primitive(plugin, span_s=H * cfg.dt)
         roll = rollout.make_rollout_fn(plugin, cfg, rollout.default_cost,
                                        swing=swing)
-        level_qp.launches = 0
-        hierarchy.fallbacks = 0
+        telemetry.reset("level_qp.launch")
+        telemetry.reset("cascade.fallback")
         out.append(roll(*expand_batch(st, refs, warm, K), U, scen, theta))
         torch.cuda.synchronize()
         if backend == "kernel":
-            assert (level_qp.launches, hierarchy.fallbacks) == (2 * H, 0)
+            counted = telemetry.counts()
+            assert (counted["level_qp.launch"],
+                    counted["cascade.fallback"]) == (2 * H, 0)
     (cost, health), (cost_ref, health_ref) = out
     assert bool(torch.isfinite(cost).all())
     assert torch.equal(health["solver_failed"], health_ref["solver_failed"])
@@ -528,13 +532,13 @@ def test_ilqr_quu_routing(device, dtype):
     NS, counted; both solve the LQR problem as the CPU does in float64."""
     from qppvm_tpu_torch.model import dynamics
 
-    ns_inverse.launches = 0
-    dynamics.plain_inverses = 0
+    telemetry.reset("ns_inverse.launch")
+    telemetry.reset("model.plain_inverse")
     res = _lqr(device, dtype)
     torch.cuda.synchronize()
     kernel = dtype == torch.float32
-    assert ns_inverse.launches == (120 if kernel else 0)
-    assert dynamics.plain_inverses == (0 if kernel else 120)
+    assert telemetry.counts()["ns_inverse.launch"] == (120 if kernel else 0)
+    assert telemetry.counts()["model.plain_inverse"] == (0 if kernel else 120)
     ref = _lqr("cpu", torch.float64)
     tol = 1e-4 if kernel else 1e-10
     for f in ("U", "X", "K"):
@@ -562,13 +566,15 @@ def test_ddp_plan_card_matches_cpu(device, robot, feet):
         com0 = kinematics.com(model, kinematics.fk(model, st))[1][0]
         mpc = CentroidalMPC(model, feet, CentroidalMPCConfig(
             horizon=15, dt=0.02, iterations=4))
-        ns_inverse.launches = 0
-        dynamics.plain_inverses = 0
+        telemetry.reset("ns_inverse.launch")
+        telemetry.reset("model.plain_inverse")
         plans[d.type] = mpc.plan(st, com0 - torch.tensor(
             [0.0, 0.0, 0.04], device=d), mpc.init_plan(st))[0]
         if d.type == "cuda":
             torch.cuda.synchronize()
-            assert (ns_inverse.launches, dynamics.plain_inverses) == (76, 0)
+            counted = telemetry.counts()
+            assert (counted["ns_inverse.launch"],
+                    counted["model.plain_inverse"]) == (76, 0)
     got, want = plans["cuda"], plans["cpu"]
     for f, rel in (("U", 1e-3), ("X", 1e-3), ("K", 1e-2), ("cost", 1e-5),
                    ("reg", 1e-6)):
@@ -627,9 +633,10 @@ def test_flop_count_is_the_same_through_kernel_and_plain(device):
                                 solver_opts=dict(rt, backend=backend))
         refs, warm, _ = plugin.on_start(st)
         st_b, refs_b, warm_b = expand_batch(st, refs, warm, 37)
-        level_qp.launches = 0
+        telemetry.reset("level_qp.launch")
         counts[backend] = bench_util.matmul_flops(plugin._step_impl, st_b,
                                                   refs_b, warm_b)
         torch.cuda.synchronize()
-        assert level_qp.launches == (2 if backend == "kernel" else 0)
+        assert telemetry.counts()["level_qp.launch"] == (
+            2 if backend == "kernel" else 0)
     assert counts["kernel"] == counts["torch"] > 0

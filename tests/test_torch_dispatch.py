@@ -4,7 +4,7 @@
 - with backend "kernel", a level in the level solver's profile goes to
   ``level_qp.solve_level`` (its plain version on CPU tensors, the same
   arithmetic as qp.solve) and a level outside it runs qp.solve and adds one
-  to ``hierarchy.fallbacks``;
+  to ``cascade.fallback`` in ``telemetry``;
 - a level whose rows are all equalities is routed to qp.solve (counted),
   and ``solve_level`` itself raises on it;
 - ``solve_level`` raises on a device that is neither CPU nor CUDA;
@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.opt import hierarchy, level_qp, qp
 
 torch.set_num_threads(1)
@@ -60,20 +61,20 @@ def _stack(B=3, n=8, n_eq=2, n_ineq=3, level_rows=(2, 3), seed=0):
 def test_kernel_backend_routes_and_counts_fallbacks():
     stack = _stack()
     warm = hierarchy.warm_start_init(stack)
-    hierarchy.fallbacks = 0
+    telemetry.reset("cascade.fallback")
     x_ref, warm_ref, _ = hierarchy.solve(stack, warm, backend="torch", **RT)
-    assert hierarchy.fallbacks == 0
+    assert telemetry.counts()["cascade.fallback"] == 0
     # in profile: both levels go to the level solver, nothing counted, and
     # on CPU it is exactly qp.solve's arithmetic
     x, warm_k, infos = hierarchy.solve(stack, warm, backend="kernel", **RT)
-    assert hierarchy.fallbacks == 0
+    assert telemetry.counts()["cascade.fallback"] == 0
     assert torch.equal(x, x_ref)
     assert all(torch.equal(a.Kinv, b.Kinv) for a, b in zip(warm_k, warm_ref))
     # outside the profile (a polished solve; no warm state): one per level
     hierarchy.solve(stack, warm, backend="kernel", **dict(RT, polish_rounds=2))
-    assert hierarchy.fallbacks == 2
+    assert telemetry.counts()["cascade.fallback"] == 2
     hierarchy.solve(stack, None, backend="kernel", **RT)
-    assert hierarchy.fallbacks == 4
+    assert telemetry.counts()["cascade.fallback"] == 4
     with pytest.raises(ValueError):
         hierarchy.solve(stack, warm, backend="pallas", **RT)
 
@@ -84,9 +85,9 @@ def test_all_equality_level_is_routed_and_rejected_by_the_kernel():
     the level-0 locks as tail equalities) is likewise all-equality."""
     stack = _stack(n_eq=3, n_ineq=0, level_rows=(2, 2))
     warm = hierarchy.warm_start_init(stack)
-    hierarchy.fallbacks = 0
+    telemetry.reset("cascade.fallback")
     x, _, infos = hierarchy.solve(stack, warm, backend="kernel", **RT)
-    assert hierarchy.fallbacks == 2
+    assert telemetry.counts()["cascade.fallback"] == 2
     eq_res = (stack.C @ x[..., None])[..., 0] - stack.lC
     assert float(eq_res.abs().max()) < 1e-4
     cfg = level_qp.config_from_opts(RT, n_eq_head=3, n_eq_tail=0, iters=12)

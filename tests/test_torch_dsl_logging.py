@@ -40,13 +40,13 @@ from qppvm_tpu.opt.variables import Optvar as JOptvar
 from qppvm_tpu.plugins.force_acc import ForceAccPlugin as JForceAcc
 from qppvm_tpu.runtime import logger as jlogger
 from qppvm_tpu.stack.autostack import AutoStack as JAutoStack
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import dynamics, zoo
 from qppvm_tpu_torch.model.urdf import load_urdf
 from qppvm_tpu_torch.opt import hierarchy, qp
 from qppvm_tpu_torch.opt.variables import AffineExpr, Optvar
 from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
 from qppvm_tpu_torch.plugins.qppvm import QPPVMPlugin
-from qppvm_tpu_torch.runtime import logger
 from qppvm_tpu_torch.runtime import robot_interface as ri
 from qppvm_tpu_torch.runtime.logger import TraceBuffer, scan_with_stream
 
@@ -277,9 +277,9 @@ def test_scan_with_stream_matches_host_dispatch(tmp_path):
     T, CHUNK = 16, 8
     carry0 = (robot.state, robot._anchors, warm)
     streamed = TraceBuffer(str(tmp_path / "dev"), capacity=T)
-    logger.host_copies = 0
+    telemetry.reset("logger.host_copy")
     carry_s = scan_with_stream(tick, carry0, T, streamed, chunk=CHUNK)
-    assert logger.host_copies == T // CHUNK
+    assert telemetry.counts()["logger.host_copy"] == T // CHUNK
 
     host = TraceBuffer(str(tmp_path / "host"), capacity=T)
     c = carry0

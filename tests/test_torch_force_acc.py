@@ -31,9 +31,10 @@ from qppvm_tpu.opt import qp as jqp
 from qppvm_tpu.plugins.force_acc import ForceAccPlugin as JForceAcc
 from qppvm_tpu.stack.autostack import AutoStack as JAutoStack
 from qppvm_tpu.tasks.base import AssembleCtx as JAssembleCtx
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import convert, dynamics, zoo
 from qppvm_tpu_torch.mpc.rollout import standing_state
-from qppvm_tpu_torch.opt import hierarchy, qp
+from qppvm_tpu_torch.opt import qp
 from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
 from qppvm_tpu_torch.tasks.base import AssembleCtx
 
@@ -171,12 +172,13 @@ def torch_side():
         polish.append(bool(torch.any(x_new != args[5])))
         return x_new, y_new
 
-    hierarchy.fallbacks = 0
+    telemetry.reset("cascade.fallback")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(qp, "_polish", record_polish)
         refs, warm, waist = plugin.on_start(st)
     return dict(plugin=plugin, state=st, refs=refs, warm=warm, waist=waist,
-                polish=polish, on_start_fallbacks=hierarchy.fallbacks)
+                polish=polish,
+                on_start_fallbacks=telemetry.counts()["cascade.fallback"])
 
 
 def test_standing_state_matches_reference(jax_side, torch_side):

@@ -38,9 +38,9 @@ from qppvm_tpu.tasks import acceleration as jacc
 from qppvm_tpu.tasks import base as jbase
 from qppvm_tpu.tasks import force as jforce
 from qppvm_tpu.tasks import generic as jgen
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import convert, dynamics, zoo
 from qppvm_tpu_torch.mpc.rollout import standing_state
-from qppvm_tpu_torch.opt import hierarchy
 from qppvm_tpu_torch.opt.variables import Optvar
 from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
 from qppvm_tpu_torch.tasks import acceleration, base, force, generic
@@ -347,9 +347,10 @@ def test_centaur_on_start_matches_reference(centaur, port_centaur):
     st = standing_state(plugin.model, FEET)
     for k in ("q", "base_rot", "base_pos"):
         _close(getattr(st, k)[0], getattr(centaur["state"], k))
-    hierarchy.fallbacks = 0
+    telemetry.reset("cascade.fallback")
     refs, warm, waist = plugin.on_start(st)
-    assert hierarchy.fallbacks == 4    # cold polished solves: counted
+    # cold polished solves: counted
+    assert telemetry.counts()["cascade.fallback"] == 4
     leaves = jax.tree_util.tree_leaves_with_path(centaur["refs"])
     assert len(leaves) == sum(len(r) for r in refs.values())
     for path, leaf in leaves:

@@ -39,9 +39,9 @@ from qppvm_tpu.mpc import sampling as jsampling
 from qppvm_tpu.model.robot import RobotState as JRobotState
 from qppvm_tpu.opt.qp import QPState as JQPState
 from qppvm_tpu.plugins.force_acc import ForceAccPlugin as JForceAcc
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import convert, zoo
 from qppvm_tpu_torch.mpc import rollout, sampling
-from qppvm_tpu_torch.opt import hierarchy
 from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
 from qppvm_tpu_torch.runtime.rt_loop import FOOT_PATCH
 
@@ -136,10 +136,11 @@ def test_rollout_matches_reference(sides):
     assert troll.solver_opts["backend"] == "kernel"
     tst, trefs, twarm = sampling.expand_batch(sides["tst"], sides["trefs"],
                                               sides["twarm"], K)
-    hierarchy.fallbacks = 0
+    telemetry.reset("cascade.fallback")
     cost, health = troll(tst, trefs, twarm, torch.tensor(controls),
                          {k: torch.tensor(v) for k, v in scen.items()})
-    assert hierarchy.fallbacks == 0   # every level in the kernel's profile
+    # every level in the kernel's profile
+    assert telemetry.counts()["cascade.fallback"] == 0
     assert cost.shape == (K,)
     _close(cost, cost_ref)
     _close(health["prim_res_max"], health_ref["prim_res_max"], rtol=2e-2,

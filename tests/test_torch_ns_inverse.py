@@ -25,6 +25,7 @@ import torch
 
 from qppvm_tpu.opt import linalg as jlinalg
 from qppvm_tpu.opt.pallas_linalg import ns_inverse_pallas
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.opt import linalg, ns_inverse
 
 torch.set_num_threads(1)
@@ -46,9 +47,10 @@ def test_ns_inverse_matches_pallas_kernel(B, n, iters, tile):
     K = _spd_batch(seed=n, B=B, n=n)
     X_ref = np.asarray(ns_inverse_pallas(jnp.asarray(K), iters=iters,
                                          tile=tile, interpret=True))
-    before = ns_inverse.launches
+    before = telemetry.counts()["ns_inverse.launch"]
     X = ns_inverse.ns_inverse(torch.tensor(K), iters=iters)
-    assert ns_inverse.launches == before   # the CPU runs the plain version
+    # the CPU runs the plain version
+    assert telemetry.counts()["ns_inverse.launch"] == before
     assert X.shape == (B, n, n) and X.dtype == torch.float32
     np.testing.assert_allclose(X.numpy(), X_ref, atol=2e-4, rtol=2e-3)
     res = np.abs(K.astype(np.float64) @ X.numpy() - np.eye(n)).max()
