@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-1. build both kernels (csrc/level_qp.cu, csrc/ns_inverse.cu; one nvcc each,
-   started together) and print the card;
+1. build the three kernels (csrc/level_qp.cu, csrc/ns_inverse.cu,
+   csrc/model_sweep.cu; one nvcc each, started together) and print the
+   card;
 2. hold the level-QP kernel against its plain PyTorch version on WBC-shaped
    random problems at the humanoid tick's level shapes and two others (no
    equalities; more inequality rows than one product tile covers), B = 1024,
@@ -27,7 +28,8 @@ Phases, each fatal on failure:
 3. drive the main path: ForceAccPlugin on the humanoid with bench.py's RT
    profile, on_start, then 5 chained batched ticks at B = 1024 (q perturbed
    by 0.01 N(0, 1)); gate on zero solver failures and finite torques,
-   require 2 kernel launches and 0 fallbacks per tick, compare tau with the
+   require 2 kernel launches and 0 fallbacks per tick and 1 model-sweep
+   launch a tick with no plain sweep, compare tau with the
    same chain run through the plain level solver (backend "torch"), and
    time the tick with either;
 4. drive the NS-inverse path (ns_inverse, bench_pallas.py's B 1024, n 64,
@@ -44,7 +46,22 @@ Phases, each fatal on failure:
    torch.linalg.inv at each shape; also every shape phase 15 hands the
    kernel, recorded as it runs: the first Q_uu of a quadruped plan (n 12,
    22 iterations), of a humanoid plan (n 6, 22) and of the LQR problem
-   (n 2, 22), and the quadruped's SRBD inertia (n 3, 16);
+   (n 2, 22), and the quadruped's SRBD inertia (n 3, 16); then phase 19
+   (``--phase sweep`` alone): the model-sweep kernel (csrc/model_sweep.cu:
+   fk, the nonlinear term and the bias accelerations in one launch) held
+   to its plain version (model_sweep.sweep_reference; R, p, S_ang, h,
+   bias_all within SWEEP_BAR, tests/test_torch_model_sweep.py's bar) at
+   the benchmark cells' shapes (the humanoid at B 1, the centaur at B
+   1024) and the MPPI rollout's (the humanoid at B 4096), from states far
+   from home; the kernel timed on the device and a call with the wrapper,
+   the plain version, the bound; one ForceAcc step_core of the humanoid
+   counts 1 model_sweep.launch and 0 model.plain_sweep. Every phase that
+   counts level or NS launches on a path (3, 5 to 18) also counts that
+   path's model-sweep launches (one a model update: a tick, a rollout
+   step, a DDP plan's and the QPPVM on_start's) and its CUDA model updates
+   outside the kernel (model.plain_sweep: one a ForceAcc on_start in the
+   window, none else) and fails on any other count; the kernels line's
+   model_sweep row gives them by path;
 5. the closed loop (runtime/rt_loop.py): 500 ticks of the humanoid's RT
    tick against the contact plant, gated on zero solver failures and a
    stand within 0.08 m; ms per tick, sim-only ms per tick and their
@@ -194,8 +211,8 @@ phases 9, 11 and 15, the longest host-bound loops, and phases 17 and
 own (``python3 chip_smoke.py --phase capture`` / ``--phase qppvm`` /
 ``--phase ddp`` / ``--phase parallel``, which run that phase alone) beside
 phases 5 to 14, 16 and 18 (b, c) in this one; each phase
-sets and reads the launch counts of its own process, and its output is
-printed when it ends.
+sets and reads the launch counts of its own process, and its output and
+model-sweep launches by path are printed and gathered when it ends.
 
 Prints the card's name and power limit, a JSON line describing the kernels,
 then, as the last line, {"ok": true, "device": {...}}. Exits non-zero
@@ -537,10 +554,19 @@ EXEC_TICKS, EXEC_PERIOD_S, EXEC_Z_TOL = 100, 0.1, 0.05
 
 # the program's counters (qppvm_tpu_torch/telemetry.py) the phases reset
 # and read: level and NS kernel launches, levels outside the level kernel's
-# profile, plain mass-matrix inverses of CUDA tensors, streamed host copies
+# profile, plain mass-matrix inverses of CUDA tensors, streamed host copies,
+# model-sweep launches and CUDA model updates outside the kernel
 LEVEL, NS, FALLBACK = "level_qp.launch", "ns_inverse.launch", \
     "cascade.fallback"
 PLAIN, COPY = "model.plain_inverse", "logger.host_copy"
+SWEEP, PLAIN_SWEEP = "model_sweep.launch", "model.plain_sweep"
+# phase 19: (robot, B) of the benchmark's cells and of the MPPI rollout;
+# the bar of tests/test_torch_model_sweep.py, max |a - r| / max(max |r|, 1)
+# an item
+SWEEP_SHAPES = (("humanoid", 1), ("centaur", 1024), ("humanoid", 4096))
+SWEEP_BAR = 5e-5
+# each path's model-sweep launches, for the kernels line (``gate_sweeps``)
+SWEEPS = {}
 
 
 def zero(*names):
@@ -553,6 +579,19 @@ def counted(name) -> int:
     """The count of ``name`` since it was last set back to 0."""
     from qppvm_tpu_torch import telemetry
     return telemetry.counts()[name]
+
+
+def gate_sweeps(path, expected, plain=0) -> int:
+    """The model-sweep launches since ``zero(SWEEP, PLAIN_SWEEP)``, kept
+    in SWEEPS under ``path``; fails unless they are ``expected`` and the
+    CUDA model updates outside the kernel are ``plain`` (the ForceAcc
+    on_starts in the window)."""
+    got = (counted(SWEEP), counted(PLAIN_SWEEP))
+    if got != (expected, plain):
+        fail(f"{path}: {got[0]} model-sweep launches and {got[1]} plain "
+             f"sweeps, expected {expected} and {plain}")
+    SWEEPS[path] = got[0]
+    return got[0]
 
 
 def fail(msg):
@@ -957,6 +996,7 @@ def phase_closed_loop(torch, dev, card, hierarchy, level_qp, nsi):
     zero(LEVEL)
     zero(FALLBACK)
     zero(NS)
+    zero(SWEEP, PLAIN_SWEEP)
     t0 = time.perf_counter()
     res_k = loop_k.run(KERNEL_LOOP_TICKS, record=LOOP_COMPARE)
     torch.cuda.synchronize()
@@ -966,6 +1006,7 @@ def phase_closed_loop(torch, dev, card, hierarchy, level_qp, nsi):
     if launches != 2 * KERNEL_LOOP_TICKS or fallbacks != 0:
         fail(f"kernel loop: {launches} launches and {fallbacks} fallbacks, "
              f"expected {2 * KERNEL_LOOP_TICKS} and 0")
+    gate_sweeps("closed_loop_b1", KERNEL_LOOP_TICKS)
     substeps = loop_k.robot.substeps
     if ns_launches != substeps * KERNEL_LOOP_TICKS:
         fail(f"kernel loop: {ns_launches} NS launches, expected "
@@ -1001,6 +1042,7 @@ def phase_mpc(torch, dev, card, hierarchy, level_qp, nsi):
     zero(LEVEL)
     zero(FALLBACK)
     zero(NS)
+    zero(SWEEP, PLAIN_SWEEP)
     U, info0 = hp.plan(g, hp.mpc.init_plan())      # untimed
     torch.cuda.synchronize()
     if counted(LEVEL) != 2 * HORIZON or counted(FALLBACK) != 0:
@@ -1008,8 +1050,10 @@ def phase_mpc(torch, dev, card, hierarchy, level_qp, nsi):
              f"{counted(FALLBACK)} fallbacks, expected {2 * HORIZON}, 0")
     if counted(NS) != 1:
         fail(f"MPC plan: {counted(NS)} NS launches, expected 1")
+    gate_sweeps("mpc_plans", HORIZON)
     zero(LEVEL)
     zero(NS)
+    zero(SWEEP, PLAIN_SWEEP)
     t0 = time.perf_counter()
     for _ in range(MPC_REPS):
         U, info = hp.plan(g, U)
@@ -1022,13 +1066,15 @@ def phase_mpc(torch, dev, card, hierarchy, level_qp, nsi):
              f"expected {2 * HORIZON * MPC_REPS} and 0")
     if ns_launches != MPC_REPS:
         fail(f"MPC plans: {ns_launches} NS launches, expected {MPC_REPS}")
+    sweep_launches = gate_sweeps("mpc_plans", HORIZON * MPC_REPS)
     for tag, inf in (("untimed", info0), ("timed", info)):
         ff, cm = float(inf["solver_fail_frac"]), float(inf["cost_mean"])
         if ff != 0.0 or not np.isfinite(cm):
             fail(f"MPC {tag} plan: solver_fail_frac {ff}, cost_mean {cm}")
     print(f"MPC plan: {N_SAMPLES} samples x {HORIZON} steps, {launches} "
-          f"level launches and {ns_launches} NS launches over {MPC_REPS} "
-          f"plans, 0 fallbacks, solver_fail_frac "
+          f"level launches, {ns_launches} NS launches and {sweep_launches} "
+          f"model-sweep launches over {MPC_REPS} plans, 0 fallbacks, "
+          f"solver_fail_frac "
           f"0.0, cost_mean {float(info['cost_mean']):.6g}, prim_res_max "
           f"{float(info['prim_res_max']):.3g}, ess {float(info['ess']):.1f}")
     print(f"[{card}] MPC plan step: {plan_ms:.3f} ms, "
@@ -1082,6 +1128,7 @@ def phase_centaur_tick(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     zero(LEVEL)
     zero(FALLBACK)
     zero(NS)
+    zero(SWEEP, PLAIN_SWEEP)
     taus, prim_max = chain(torch, plugins["kernel"], states, refs_b, warm_b,
                            "centaur kernel", inside_cones)
     torch.cuda.synchronize()
@@ -1090,11 +1137,13 @@ def phase_centaur_tick(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     if launches != 2 * TICKS or fallbacks != 0:
         fail(f"centaur tick: {launches} launches and {fallbacks} fallbacks, "
              f"expected {2 * TICKS} and 0")
+    gate_sweeps("centaur_tick_b1024", TICKS)
     taus_ref, _ = chain(torch, plugins["torch"], states, refs_b, warm_b,
                         "centaur torch", inside_cones)
     tau_err = compare_taus(torch, taus, taus_ref, "centaur")
     print(f"centaur tick (friction cones, n 49): {TICKS} ticks at B={B}: "
-          f"kernel launches {launches}, fallbacks 0, solver_fail_frac 0.0, "
+          f"kernel launches {launches}, fallbacks 0, model-sweep launches "
+          f"{TICKS}, solver_fail_frac 0.0, "
           f"prim_res_max {prim_max:.3g}, every wrench in its cone (mu "
           f"{CENTAUR_MU}, fz >= {FZ_MIN} within {CONE_TOL} N); tau vs plain "
           f"chain max abs diff {tau_err:.3g} Nm (|tau| up to "
@@ -1163,6 +1212,7 @@ def phase_quadruped_loop(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     zero(LEVEL)
     zero(FALLBACK)
     zero(NS)
+    zero(SWEEP, PLAIN_SWEEP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st, n_fail, fz_sums, fz_last, taus = drive_quadruped(
@@ -1177,6 +1227,7 @@ def phase_quadruped_loop(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     if ns_launches != QUAD_SUBSTEPS * QUAD_TICKS:
         fail(f"quadruped loop: {ns_launches} NS launches, expected "
              f"{QUAD_SUBSTEPS} per tick ({QUAD_SUBSTEPS * QUAD_TICKS})")
+    gate_sweeps("quadruped_loop_b1", QUAD_TICKS)
     z1 = float(st.base_pos[0, 2])
     fz_mean = float(torch.stack(fz_sums).mean())
     fz_min = float(fz_last.min())
@@ -1404,6 +1455,7 @@ def phase_capture(torch, dev, card, hierarchy, level_qp, nsi):
         zero(LEVEL)
         zero(FALLBACK)
         zero(NS)
+        zero(SWEEP, PLAIN_SWEEP)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         c, health = roll(st_k, refs_k, warm_k, U0, scen, thetas)
@@ -1417,6 +1469,7 @@ def phase_capture(torch, dev, card, hierarchy, level_qp, nsi):
                 fail(f"capture plan: {counted(LEVEL)} level launches, "
                      f"{counted(FALLBACK)} fallbacks, {counted(NS)} NS "
                      f"launches; expected {len(shapes) * H}, 0, 1")
+            gate_sweeps("capture_plan_b4", H)
         if not bool(torch.isfinite(c).all()):
             fail(f"capture plan ({backend}): costs {c.tolist()}")
         print(f"capture plan ({backend} level solver): "
@@ -1464,6 +1517,7 @@ def phase_capture(torch, dev, card, hierarchy, level_qp, nsi):
     zero(LEVEL)
     zero(FALLBACK)
     zero(NS)
+    zero(SWEEP, PLAIN_SWEEP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fall_step, ups_step, foot_xy, rt_fails, ran = capture_run(
@@ -1471,6 +1525,7 @@ def phase_capture(torch, dev, card, hierarchy, level_qp, nsi):
     torch.cuda.synchronize()
     tick_ms = (time.perf_counter() - t0) / ran * 1e3
     loop_launches = (counted(LEVEL), counted(NS))
+    gate_sweeps("capture_loop_b1", ran)
     step_len = float(torch.linalg.norm(foot_xy[-1] - foot_xy[0]))
     up_at = ups_step[fall_lean] if fall_lean < len(ups_step) else None
     print(f"capture loop: lean-only fell at tick {fall_lean}; the chosen "
@@ -1533,6 +1588,7 @@ def phase_step_recovery(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         zero(LEVEL)
         zero(FALLBACK)
         zero(NS)
+        zero(SWEEP, PLAIN_SWEEP)
         for _ in range(reps):
             (U, theta), info = mpc["kernel"].plan_step(g, st, refs, warm, U,
                                                        theta)
@@ -1545,6 +1601,7 @@ def phase_step_recovery(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         if counts != (2 * H * reps, 0, reps):
             fail(f"step-recovery plans: (level launches, fallbacks, NS "
                  f"launches) {counts}, expected {(2 * H * reps, 0, reps)}")
+        gate_sweeps("mppi_step_recovery_b512", H * reps)
         return U, theta, info, counts
 
     U, theta, _, _ = plans(1, U, theta)            # untimed
@@ -1597,6 +1654,7 @@ def phase_step_recovery(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     st_n, refs_n, warm_n = expand_batch(st, refs, warm, N)
     zero(LEVEL)
     zero(FALLBACK)
+    zero(SWEEP, PLAIN_SWEEP)
     cost, health = roll(st_n, refs_n, warm_n, torch.zeros((N, Hg, 3),
                                                           device=dev),
                         {"push": torch.zeros((N, Hg, 3), device=dev),
@@ -1610,6 +1668,7 @@ def phase_step_recovery(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     if (n_failed or not bool(torch.isfinite(cost).all())
             or counted(LEVEL) != 2 * Hg or counted(FALLBACK)):
         fail("gate_seq rollout: unhealthy, non-finite or off the kernel")
+    gate_sweeps("gate_seq_rollout_b512", Hg)
     return counts[0], counts[2]
 
 
@@ -1661,6 +1720,7 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     zero(NS)
     zero(PLAIN)
     zero(LEVEL)
+    zero(SWEEP, PLAIN_SWEEP)
     t0 = time.perf_counter()
     stats, tr = qppvm_loop(torch, plugin, robot, QPPVM_TICKS,
                            tmp.name + "/dual_arm", sinusoid)
@@ -1673,6 +1733,8 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         fail(f"QPPVM loop: {ns_launches} NS launches, {plain} plain "
              f"inverses, {levels} level launches; expected {ns_expected}, "
              f"0, 0")
+    # one model update a tick and on_start's
+    gate_sweeps("qppvm_dual_arm_loop_b1", QPPVM_TICKS + 1)
     if tr["tau_desired"].shape[0] != QPPVM_TICKS:
         fail(f"QPPVM trace: {tr['tau_desired'].shape[0]} rows")
     # the left EE after each tick's move against that tick's reference
@@ -1758,6 +1820,7 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         warm, chain_taus[b] = warm0, []
         zero(LEVEL)
         zero(FALLBACK)
+        zero(SWEEP, PLAIN_SWEEP)
         for k, s_k in enumerate(states):
             r = dict(refs, LEFT_ARM=pl.make_refs(start, k * 1e-3))
             tau, warm, aux = pl.control_loop(s_k, r, warm)
@@ -1772,6 +1835,7 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
                 fail(f"QPPVM kernel chain: {counted(LEVEL)} launches, "
                      f"{counted(FALLBACK)} fallbacks; expected "
                      f"{2 * QPPVM_COMPARE} and 0")
+            gate_sweeps("qppvm_kernel_profile_chain_b1", QPPVM_COMPARE)
     chain_err = compare_taus(torch, chain_taus["kernel"], chain_taus["torch"],
                              "QPPVM level-kernel chain")
     print(f"QPPVM rho_updates 0, {QPPVM_COMPARE} chained ticks: level "
@@ -1784,6 +1848,7 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
                              iters=40)
     arm_robot = SimRobot(arm, dt=1e-3, substeps=2)
     zero(NS)
+    zero(SWEEP, PLAIN_SWEEP)
     arm_stats, arm_tr = qppvm_loop(torch, arm_plugin, arm_robot, ARM7_TICKS,
                                    tmp.name + "/arm7")
     arm_ns = counted(NS)
@@ -1803,6 +1868,7 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         fail("QPPVM arm7 hold outside tests/test_qppvm_e2e.py's gates")
     if arm_ns != (1 + arm_robot.substeps) * ARM7_TICKS + 1:
         fail(f"QPPVM arm7 loop: {arm_ns} NS launches")
+    gate_sweeps("qppvm_arm7_loop_b1", ARM7_TICKS + 1)
     tmp.cleanup()
     return ({"qppvm_dual_arm_loop_b1": levels,
              "qppvm_kernel_profile_chain_b1": chain_launches},
@@ -1899,6 +1965,7 @@ def phase_walk(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     zero(LEVEL)
     zero(FALLBACK)
     zero(NS)
+    zero(SWEEP, PLAIN_SWEEP)
     t0 = time.perf_counter()
     aux, n_fail, err_max, taus = drive_walk(torch, w, ticks,
                                             record=LOOP_COMPARE,
@@ -1930,6 +1997,7 @@ def phase_walk(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     if ns_launches != WALK_SUBSTEPS * ticks:
         fail(f"walk stride: {ns_launches} NS launches, expected "
              f"{WALK_SUBSTEPS * ticks}")
+    gate_sweeps("walk_stride_b1", ticks)
     if n_fail:
         fail(f"walk stride: {n_fail} solver failures")
     if not swing_dx >= WALK_SWING_SHARE * WALK_GAIT["stride"][0]:
@@ -1986,6 +2054,7 @@ def phase_async(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     zero(LEVEL)
     zero(FALLBACK)
     zero(NS)
+    zero(SWEEP, PLAIN_SWEEP)
     ages, tick_ms, in_flight, rt_fails = [], [], [], 0
     t0 = time.perf_counter()
     for i in range(ASYNC_TICKS):
@@ -2052,6 +2121,9 @@ def phase_async(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     if ns_launches != 2 * ASYNC_TICKS + planner.n_launch:
         fail(f"async pipeline: {ns_launches} NS launches, expected "
              f"{2 * ASYNC_TICKS + planner.n_launch}")
+    # one model update a tick and one a step of each plan's rollout
+    gate_sweeps("async_loop_b1_and_plans",
+                ASYNC_TICKS + ASYNC_MPPI["horizon"] * planner.n_launch)
     return launches, ns_launches
 
 
@@ -2078,6 +2150,7 @@ def phase_entry(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         zero(NS)
         zero(LEVEL)
         zero(FALLBACK)
+        zero(SWEEP, PLAIN_SWEEP)
         t0 = time.perf_counter()
         out = run.main(["--config", path, *args])
         torch.cuda.synchronize()
@@ -2105,6 +2178,12 @@ def phase_entry(torch, dev, card, hierarchy, level_qp, nsi, zoo):
                      f"{counted(FALLBACK)} fallbacks, {counted(NS)} NS")
         elif counted(NS) < int(round(float(RUN_SECONDS) * 1e3)):
             fail(f"run {cname}: {counted(NS)} NS launches")
+        # one model update a tick or a rollout step; a ForceAcc on_start
+        # runs the plain sweeps, a QPPVM one the kernel
+        steps = (horizon if cfg.mpc.enabled
+                 else int(round(float(RUN_SECONDS) / cfg.sim.dt)))
+        on_start = (0, 1) if cfg.plugin.type == "force_acc" else (1, 0)
+        gate_sweeps(f"run_{cname}", steps + on_start[0], plain=on_start[1])
         print(f"[{card}] run {cname} {' '.join(args)}: {json.dumps(out)} "
               f"({run_s:.1f} s with set-up; {ns_by[cname]} NS launches, "
               f"{level_by[cname]} level launches)")
@@ -2131,10 +2210,12 @@ def phase_entry(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         return True
 
     zero(NS)
+    zero(SWEEP, PLAIN_SWEEP)
     ex = native.NativeExecutor(period_s=EXEC_PERIOD_S)
     done = ex.run(tick, EXEC_TICKS)
     stats = ex.stats()
     exec_ns = counted(NS)
+    gate_sweeps("native_executor_b1", EXEC_TICKS)
     n_pop = 0
     while ring.pop() is not None:
         n_pop += 1
@@ -2228,6 +2309,7 @@ def ddp_loop(torch, dev, zoo, backend, ticks, force=False, record=0):
     taus, track, plan_s = [], [], 0.0
     zero(LEVEL, FALLBACK, NS)
     zero(PLAIN)
+    zero(SWEEP, PLAIN_SWEEP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(ticks):
@@ -2319,6 +2401,7 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
             torch, getattr(zoo, robot)(device="cpu"), contacts, DDP_TEST)
         zero(NS)
         zero(PLAIN)
+        zero(SWEEP, PLAIN_SWEEP)
         res, _ = mpc.plan(st, p_ref, mpc.init_plan(st))
         torch.cuda.synchronize()
         plan_ns = counted(NS)
@@ -2327,6 +2410,8 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
             fail(f"ddp plan ({robot}): {plan_ns} NS launches, "
                  f"{counted(PLAIN)} plain inverses, expected "
                  f"{plan_launches(DDP_TEST)} and 0")
+        # one model update in init_plan, one in the plan
+        gate_sweeps(f"ddp_plan_test_config_{robot}", 2)
         ref, _ = cpu_mpc.plan(cpu_st, cpu_ref, cpu_mpc.init_plan(cpu_st))
         gaps = []
         for f, rel in DDP_PLAN_BARS:
@@ -2355,6 +2440,7 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         res, _ = mpc.plan(st, p_ref, mpc.init_plan(st))
         zero(NS)
         zero(PLAIN)
+        zero(SWEEP, PLAIN_SWEEP)
         times = []
         for _ in range(DDP_PLAN_REPS):
             torch.cuda.synchronize()
@@ -2369,6 +2455,7 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         if not (torch.isfinite(res.U).all() and torch.isfinite(res.cost)):
             fail(f"ddp default plan ({robot}): not finite")
         ns_by[f"ddp_plans_default_{robot}"] = counted(NS)
+        gate_sweeps(f"ddp_plans_default_{robot}", DDP_PLAN_REPS)
         plan_ms[robot] = statistics.mean(times)
         print(f"[{card}] ddp plan, default config (horizon "
               f"{mpc.cfg.horizon}, {mpc.cfg.iterations} iterations, nu "
@@ -2408,6 +2495,8 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
                 2 * DDP_TICKS, 0, want_ns, 0):
             fail(f"{label}: expected {2 * DDP_TICKS} level launches, 0 "
                  f"fallbacks, {want_ns} NS launches, 0 plain inverses")
+        # one model update a tick and one a plan
+        gate_sweeps(label, DDP_TICKS + loop["plans"])
         levels_by[label], ns_by[label] = launches, ns
         plain = ddp_loop(torch, dev, zoo, "torch", LOOP_COMPARE, force=force,
                          record=LOOP_COMPARE)
@@ -2493,6 +2582,7 @@ def phase_loaders(torch, dev, card, hierarchy, level_qp, nsi, zoo):
                  f"{model.device}")
         zero(NS)
         zero(LEVEL)
+        zero(SWEEP, PLAIN_SWEEP)
         t0 = time.perf_counter()
         out = run.main(["--config", str(cfg_path), "--seconds", RUN_SECONDS])
         torch.cuda.synchronize()
@@ -2506,6 +2596,8 @@ def phase_loaders(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         fail(f"loaders run config 1 on the URDF: {out}")
     if counted(NS) < ticks:
         fail(f"loaders run: {counted(NS)} NS launches over {ticks} ticks")
+    # one model update a tick and the QPPVM on_start's
+    gate_sweeps("run_config1_urdf", ticks + 1)
     print(f"[{card}] run config1_arm7 on the URDF arm --seconds "
           f"{RUN_SECONDS}: {json.dumps(out)} ({run_s:.1f} s with set-up; "
           f"{counted(NS)} NS launches, {counted(NS) / ticks:.2f} a tick, "
@@ -2555,7 +2647,7 @@ def _ring_rank(rank, n_ranks, device_type):
     mesh = meshlib.make_mesh(n_ranks, axis="seg")
     out = {}
     for sweeps in (None, 1, n_ranks):
-        zero(LEVEL, FALLBACK)
+        zero(LEVEL, FALLBACK, SWEEP, PLAIN_SWEEP)
         sync()
         t0 = time.perf_counter()
         final, outs, info = ring_rollout(rollout.one_step, carry0, U, mesh,
@@ -2565,6 +2657,7 @@ def _ring_rank(rank, n_ranks, device_type):
         out[sweeps] = {
             "ms": ms, "defect": float(info.defect),
             "launches": (counted(LEVEL), counted(FALLBACK)),
+            "model_sweeps": (counted(SWEEP), counted(PLAIN_SWEEP)),
             # cost and prim_res of each step against the sequential ones
             "outs_err": max(float((a - torch.stack(b)).abs().max())
                             for a, b in zip(outs[:2], list(zip(*seg))[:2])),
@@ -2594,16 +2687,20 @@ def phase_parallel(torch, dev, card, hierarchy, level_qp, nsi):
                                                dev)
     U1 = U1.cpu().numpy()
     _, _, _, ms1b = dryrun.plan_step(dryrun.SAMPLES_PER_RANK * n, dev)
-    if counts1 != (2 * H, 1, 0):
-        fail(f"dryrun single-process plan: (level, NS, fallbacks) launches "
-             f"{counts1}, expected {(2 * H, 1, 0)}")
+    # a plan: 2 levels a rollout step, the start inverse, one model update
+    # a rollout step
+    want = (2 * H, 1, 0, H)
+    if counts1 != want:
+        fail(f"dryrun single-process plan: (level, NS, fallbacks, model "
+             f"sweeps) launches {counts1}, expected {want}")
+    SWEEPS["dryrun_one_process_plan"] = counts1[3]
     launches = {}
     for tag, per_rank in results.items():
         for r, res in enumerate(per_rank):
-            if tuple(res["counts"]) != (2 * H, 1, 0):
-                fail(f"dryrun [{tag}] rank {r}: (level, NS, fallbacks) "
-                     f"launches {res['counts']} a plan, expected "
-                     f"{(2 * H, 1, 0)}")
+            if tuple(res["counts"]) != want:
+                fail(f"dryrun [{tag}] rank {r}: (level, NS, fallbacks, "
+                     f"model sweeps) launches {res['counts']} a plan, "
+                     f"expected {want}")
         res = per_rank[0]
         u_err = float(np.abs(res["U_new"] - U1).max())
         c_rel = abs(res["cost_mean"] - float(info1["cost_mean"])) / abs(
@@ -2624,6 +2721,7 @@ def phase_parallel(torch, dev, card, hierarchy, level_qp, nsi):
               f"ranks {plan_ms}; first plans {first_ms})")
         launches[f"dryrun_{tag.split()[0]}_plan_per_rank"] = \
             res["counts"][0]
+        SWEEPS[f"dryrun_{tag.split()[0]}_plan_per_rank"] = res["counts"][3]
     print(f"[{card}] dryrun: the same plan in one process: "
           f"{ms1b:.3f} ms (first {ms1:.3f})")
     ns = {f"dryrun_{t.split()[0]}_plan_per_rank": per_rank[0]["counts"][1]
@@ -2641,6 +2739,10 @@ def phase_parallel(torch, dev, card, hierarchy, level_qp, nsi):
             if tuple(v["launches"]) != (want, 0):
                 fail(f"ring rank {r} sweeps {sweeps}: (level, fallbacks) "
                      f"{v['launches']}, expected ({want}, 0)")
+            if tuple(v["model_sweeps"]) != (want // 2, 0):
+                fail(f"ring rank {r} sweeps {sweeps}: (model-sweep "
+                     f"launches, plain sweeps) {v['model_sweeps']}, "
+                     f"expected ({want // 2}, 0)")
             if v["fails"]:
                 fail(f"ring rank {r} sweeps {sweeps}: a failed QP step")
         exact = res[None]
@@ -2668,6 +2770,7 @@ def phase_parallel(torch, dev, card, hierarchy, level_qp, nsi):
           f"sweep; the {H_ring}-step rollout in one rank "
           f"{max(r['seq_ms'] for r in ranks):.3f} ms")
     launches["ring_real_rollout_per_rank_sweeps_s"] = 2 * H_ring
+    SWEEPS["ring_real_rollout_per_rank_sweeps_s"] = H_ring
     return {"levels": launches, "ns": ns}
 
 
@@ -2703,6 +2806,7 @@ def phase_stream(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         streamed = logger.TraceBuffer(f"{tmp}/dev", capacity=STREAM_TICKS)
         zero(COPY)
         zero(NS)
+        zero(SWEEP, PLAIN_SWEEP)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         carry_s = logger.scan_with_stream(tick, carry0, STREAM_TICKS,
@@ -2710,6 +2814,7 @@ def phase_stream(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         torch.cuda.synchronize()
         ms_s = (time.perf_counter() - t0) / STREAM_TICKS * 1e3
         copies, ns_launches = counted(COPY), counted(NS)
+        gate_sweeps("stream_loop_b1", STREAM_TICKS)
         host = logger.TraceBuffer(f"{tmp}/host", capacity=STREAM_TICKS)
         c = carry0
         t0 = time.perf_counter()
@@ -2807,7 +2912,9 @@ def collect_side_phase(name, proc, out):
     print("\n".join(ln for ln in lines if not ln.startswith(RESULT_TAG)))
     if rc != 0 or len(results) != 1:
         fail(f"phase {name}: its process exited {rc}")
-    return json.loads(results[0])
+    out = json.loads(results[0])
+    SWEEPS.update(out["sweeps"])
+    return out["result"]
 
 
 def main():
@@ -2817,7 +2924,7 @@ def main():
     import_port()
     from qppvm_tpu_torch import build
     from qppvm_tpu_torch.opt import hierarchy, level_qp, ns_inverse
-    from qppvm_tpu_torch.model import zoo
+    from qppvm_tpu_torch.model import model_sweep, zoo
     from qppvm_tpu_torch.opt import level_qp_parity as parity
 
     dev = torch.device("cuda", 0)
@@ -2841,22 +2948,25 @@ def main():
         "stream": lambda: phase_stream(*args, zoo),
         "flops": lambda: phase_flops(*args, zoo)}
     if sys.argv[1:2] == ["--phase"]:    # one phase in a process of its own
-        for m in (level_qp, ns_inverse):   # loaded, or built, before timing
+        for m in (level_qp, ns_inverse, model_sweep):   # built before timing
             m.library()
-        result = phases[sys.argv[2]]()
-        print(RESULT_TAG + json.dumps(result))
+        alone = dict(phases, sweep=lambda: phase_model_sweep(
+            torch, dev, card, zoo))
+        result = alone[sys.argv[2]]()
+        print(RESULT_TAG + json.dumps({"result": result, "sweeps": SWEEPS}))
         return
     print("torch", torch.__version__, "cuda", torch.version.cuda,
           "python", sys.version.split()[0])
 
     # ---- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, together
-        for f in [pool.submit(m.library) for m in (level_qp, ns_inverse)]:
+    kernels = (level_qp, ns_inverse, model_sweep)
+    with ThreadPoolExecutor(3) as pool:   # one nvcc per source, together
+        for f in [pool.submit(m.library) for m in kernels]:
             f.result()
-    print(f"build: level_qp.cu and ns_inverse.cu built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for name in ("level_qp", "ns_inverse"):
+    print(f"build: level_qp.cu, ns_inverse.cu and model_sweep.cu built and "
+          f"loaded in {time.perf_counter() - t0:.1f} s")
+    for name in ("level_qp", "ns_inverse", "model_sweep"):
         log = build.library_path(name).with_suffix(".log")
         if log.exists():
             print(log.read_text().strip())
@@ -2866,6 +2976,7 @@ def main():
     run = phase_levels(torch, dev, card, parity, level_qp)
     run.update(phase_main_path(torch, dev, card, hierarchy, level_qp, zoo))
     run["ns_row"] = phase_ns_inverse(torch, dev, card)
+    run["sweep_row"] = phase_model_sweep(torch, dev, card, zoo)
     print(f"phases 2 to 4 took {time.perf_counter() - t0:.1f} s")
     # the kernels' timing phases ran alone; the closed loops and plans,
     # host-bound, now share the card: the longest run in processes of
@@ -2956,15 +3067,18 @@ def phase_main_path(torch, dev, card, hierarchy, level_qp, zoo):
         torch, dev, zoo.humanoid(device=dev), CONTACTS)
     zero(LEVEL)
     zero(FALLBACK)
+    zero(SWEEP, PLAIN_SWEEP)
     taus, prim_max = chain(torch, plugins["kernel"], states, refs_b, warm_b,
                            "kernel")
     torch.cuda.synchronize()
     launches, fallbacks = counted(LEVEL), counted(FALLBACK)
     print(f"main path: {TICKS} ticks at B={B}: kernel launches {launches}, "
-          f"fallbacks {fallbacks}, solver_fail_frac 0.0, prim_res_max "
-          f"{prim_max:.3g}")
+          f"fallbacks {fallbacks}, model-sweep launches {counted(SWEEP)}, "
+          f"plain sweeps {counted(PLAIN_SWEEP)}, solver_fail_frac 0.0, "
+          f"prim_res_max {prim_max:.3g}")
     if launches != 2 * TICKS or fallbacks != 0:
         fail(f"expected {2 * TICKS} launches and 0 fallbacks")
+    gate_sweeps("batched_tick", TICKS)
     taus_ref, _ = chain(torch, plugins["torch"], states, refs_b, warm_b,
                         "torch")
     tau_err = compare_taus(torch, taus, taus_ref, "main path")
@@ -2978,6 +3092,98 @@ def phase_main_path(torch, dev, card, hierarchy, level_qp, zoo):
               f"{statistics.median(times):.3f} ms over {REPS} reps "
               f"(min {min(times):.3f}, max {max(times):.3f})")
     return {"launches": launches}
+
+
+def sweep_cost(model, B):
+    """(FLOPs, bytes) of one model sweep of B items, counted from
+    csrc/model_sweep.cu: about 687 FLOPs a revolute link (joint transform
+    127, fk 78, three motion transforms 126, the velocity products 51, the
+    link's force 180, the bias 72, the backward step 53) and 200 for the
+    base; the state read and the outputs written once an item, the model
+    and the topology read once."""
+    nj, nv = model.nj, model.nv
+    flops = B * (687 * nj + 200)
+    nbytes = 4 * (B * (2 * nj + 18 + 21 * nj + nv) + 51 * nj + 39
+                  + 5 * nj + 2)
+    return flops, nbytes
+
+
+def far_state(torch, model, B, seed):
+    """A state far from home: q std 0.5 about home, qd and base_vel std 1,
+    a random base rotation and position (tests/test_torch_model_sweep.py's)."""
+    from qppvm_tpu_torch.model import spatial
+    g = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device=model.device)
+    return type(model.home_state())(
+        q=t(model.q_home.cpu().numpy() + 0.5 * g.standard_normal(
+            (B, model.nj))),
+        qd=t(g.standard_normal((B, model.nj))),
+        base_rot=spatial.so3_exp(t(g.standard_normal((B, 3)))),
+        base_pos=t(g.standard_normal((B, 3))),
+        base_vel=t(g.standard_normal((B, 6))))
+
+
+def phase_model_sweep(torch, dev, card, zoo):
+    """Phase 19: the model-sweep kernel against its plain version at the
+    cells' and the rollout's shapes, timed, and its launches in a tick."""
+    from qppvm_tpu_torch.bench_util import bound_ms
+    from qppvm_tpu_torch.model import model_sweep
+
+    max_gap, rows = 0.0, {}
+    for i, (name, Bs) in enumerate(SWEEP_SHAPES):
+        model = zoo.by_name(name, device=dev)
+        state = far_state(torch, model, Bs, seed=i)
+        (kin, h, bias) = model_sweep.sweep(model, state)
+        kr, hr, br = model_sweep.sweep_reference(model, state)
+        torch.cuda.synchronize()
+        gaps = {}
+        for out, a, r in (("R", kin.R, kr.R), ("p", kin.p, kr.p),
+                          ("S_ang", kin.S_ang, kr.S_ang), ("h", h, hr),
+                          ("bias_all", bias, br)):
+            a, r = a.reshape(Bs, -1), r.reshape(Bs, -1)
+            gaps[out] = float(((a - r).abs().amax(1) / torch.clamp(
+                r.abs().amax(1), min=1.0)).max())
+        label = f"{name} B={Bs}"
+        print(f"model_sweep kernel vs plain {label}: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in gaps.items()))
+        if not max(gaps.values()) < SWEEP_BAR:
+            fail(f"model_sweep {label}: kernel differs from the plain "
+                 f"version by {max(gaps.values()):.3g} (bar {SWEEP_BAR})")
+        max_gap = max(max_gap, *gaps.values())
+        run_k = lambda: model_sweep.sweep(model, state)  # noqa: E731
+        run_p = lambda: model_sweep.sweep_reference(model, state)  # noqa: E731
+        p1 = cuda_time_ms(torch, run_p)
+        k1, k2 = (cuda_time_ms(torch, run_k, lead=True) for _ in range(2))
+        p2 = cuda_time_ms(torch, run_p)
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        call_ms = cuda_time_ms(torch, run_k)
+        b_ms, b_by = bound_ms(*sweep_cost(model, Bs))
+        rows[label] = (k_ms, p_ms, b_ms, b_by)
+        print(f"[{card}] model_sweep {label}: kernel {k_ms:.4f} ms on the "
+              f"device ({call_ms:.4f} ms a call with the wrapper's host "
+              f"time), plain PyTorch {p_ms:.4f} ms; bound {b_ms:.4g} ms "
+              f"({b_by}), kernel at {100 * b_ms / k_ms:.3g}%")
+
+    plugins, states, refs_b, warm_b = main_path_inputs(
+        torch, dev, zoo.humanoid(device=dev), CONTACTS)
+    zero(SWEEP, PLAIN_SWEEP)
+    plugins["kernel"].step_core(states, refs_b, warm_b)
+    torch.cuda.synchronize()
+    print(f"model_sweep: one step_core of the humanoid at B={B}: "
+          f"{counted(SWEEP)} kernel launch(es), {counted(PLAIN_SWEEP)} plain "
+          f"sweep(s)")
+    gate_sweeps("step_core_b1024", 1)
+    k_ms, p_ms, b_ms, b_by = rows["centaur B=1024"]
+    return {"name": "model_sweep", "route": "cuda",
+            "source": "qppvm_tpu_torch/csrc/model_sweep.cu",
+            "replaces": None, "max_abs_err": max_gap,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "ms_humanoid_b1": rows["humanoid B=1"][0],
+            "plain_ms_humanoid_b1": rows["humanoid B=1"][1],
+            "ms_humanoid_b4096": rows["humanoid B=4096"][0],
+            "plain_ms_humanoid_b4096": rows["humanoid B=4096"][1]}
 
 
 def print_kernels_line(torch, run):
@@ -3014,6 +3220,9 @@ def print_kernels_line(torch, run):
                                   **run["parallel"]["ns"],
                                   "stream_loop_b1": run["stream"]["ns"]}
 
+    sweep_row = dict(run["sweep_row"], launches=SWEEPS["batched_tick"],
+                     launches_by_path=dict(SWEEPS))
+
     b_ms, b_by = bound_ms(sum(f for f, _ in level_bound),
                           sum(b for _, b in level_bound))
     print(json.dumps({"kernels": [{
@@ -3041,7 +3250,7 @@ def print_kernels_line(torch, run):
                              "async_plans_b512": async_levels,
                              **entry_levels, **ddp_levels,
                              **run["parallel"]["levels"]}},
-        ns_row]}))
+        ns_row, sweep_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -50,9 +50,10 @@ def plan_step(n_samples: int, device, mesh=None, seed: int = 0):
     sharded over ``mesh`` (None: all in this process); on_start's
     references and warm state are rank 0's on every rank. Returns
     (U_new, info, counts, ms): counts are this process's level launches,
-    NS launches and fallbacks of the plan (``telemetry``'s
-    ``level_qp.launch``, ``ns_inverse.launch``, ``cascade.fallback``), ms
-    its host time to a synchronize."""
+    NS launches, fallbacks and model-sweep launches of the plan
+    (``telemetry``'s ``level_qp.launch``, ``ns_inverse.launch``,
+    ``cascade.fallback``, ``model_sweep.launch``), ms its host time to a
+    synchronize."""
     from qppvm_tpu_torch import telemetry
     from qppvm_tpu_torch.mpc.rollout import RolloutConfig
     from qppvm_tpu_torch.mpc.sampling import MPPIConfig, SamplingMPC
@@ -70,7 +71,8 @@ def plan_step(n_samples: int, device, mesh=None, seed: int = 0):
     gen = torch.Generator(device=device).manual_seed(seed)
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else lambda: None)
-    names = ("level_qp.launch", "ns_inverse.launch", "cascade.fallback")
+    names = ("level_qp.launch", "ns_inverse.launch", "cascade.fallback",
+             "model_sweep.launch")
     telemetry.reset(*names)
     sync()
     t0 = time.perf_counter()
@@ -130,6 +132,7 @@ def dryrun_multichip(n_ranks: int, device=devices.DEFAULT, reps: int = 1,
     health and that U_new is bitwise the same on every rank, prints the
     reference's line per mesh and returns {tag: [each rank's result]}
     (``_rank``'s dicts)."""
+    from qppvm_tpu_torch.model import model_sweep
     from qppvm_tpu_torch.opt import level_qp, ns_inverse
     from qppvm_tpu_torch.parallel import mesh as meshlib
 
@@ -137,6 +140,7 @@ def dryrun_multichip(n_ranks: int, device=devices.DEFAULT, reps: int = 1,
     if device.type == "cuda":   # built once, before the ranks start
         level_qp.library()
         ns_inverse.library()
+        model_sweep.library()
     ranks = meshlib.run_ranks(_rank, n_ranks, (n_ranks, device.type, reps),
                               timeout_s=timeout_s,
                               group_timeout_s=min(timeout_s, 120.0))

@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 
 from qppvm_tpu_torch import telemetry
-from qppvm_tpu_torch.model import kinematics, spatial
+from qppvm_tpu_torch.model import kinematics, model_sweep, spatial
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
 from qppvm_tpu_torch.opt import linalg, ns_inverse
 
@@ -306,25 +306,51 @@ def relative_frame_data(model: RobotModel, data: ModelData, distal: str,
 
 
 def compute_model_data(model: RobotModel, state: RobotState,
-                       need_binv: bool = False) -> ModelData:
+                       need_binv: bool = False,
+                       plain_sweeps: bool = False) -> ModelData:
     """The tick's model data; with ``need_binv`` also the mass matrix's
     inverse, 18 + 2 Newton-Schulz iterations without regularization
     (``mass_matrix_inverse(B, 20)``: the NS kernel for float32 on the
-    card)."""
+    card).
+
+    The recursive sweeps (fk, the nonlinear term, the bias accelerations)
+    of a CUDA state the model-sweep kernel takes (``model_sweep.takes``)
+    run in one launch (``model_sweep.sweep``, span ``model_update.sweep``);
+    any other CUDA state (float64, a per-item inertia, a tensor that needs
+    a gradient) runs the plain functions and counts one
+    ``model.plain_sweep`` (``telemetry``), as a CPU state runs them.
+    ``plain_sweeps`` sends a CUDA state to the plain functions too (and
+    counts it): ``ForceAccPlugin.on_start`` passes it, because the
+    centaur's on_start with friction cones is not determined in float32.
+    Its two polished cold solves amplify the kernel's roundoff in h (about
+    2e-7 of max |h|) into a warm solution 0.848 away from the plain
+    sweeps' (on an H100, the benchmark's ``start`` check of
+    centaur-batch-b1024, whose limit is 1e-4), and every chained tick
+    starts from that solution."""
     span = telemetry.span
+    cuda = state.q.device.type == "cuda"
+    kernel = cuda and not plain_sweeps and model_sweep.takes(model, state)
+    if cuda and not kernel:
+        telemetry.count("model.plain_sweep")
     with span("model_update"):
-        with span("model_update.fk"):
-            kin = kinematics.fk(model, state)
+        if kernel:
+            with span("model_update.sweep"):
+                kin, h, bias_all = model_sweep.sweep(model, state)
+        else:
+            with span("model_update.fk"):
+                kin = kinematics.fk(model, state)
         with span("model_update.mass_matrix"):
             M = mass_matrix(model, state, kin=kin)
-        with span("model_update.nonlinear"):
-            h = nonlinear_term(model, state, kin=kin)
+        if not kernel:
+            with span("model_update.nonlinear"):
+                h = nonlinear_term(model, state, kin=kin)
         with span("model_update.jacobians"):
             J_all = kinematics.all_link_jacobians(model, kin)
         with span("model_update.velocities"):
             vel_all = kinematics.link_velocities(model, kin, state, J_all)
-        with span("model_update.bias"):
-            bias_all = kinematics.bias_accelerations(model, kin, state)
+        if not kernel:
+            with span("model_update.bias"):
+                bias_all = kinematics.bias_accelerations(model, kin, state)
         with span("model_update.com"):
             total_mass, com_pos = kinematics.com(model, kin)
         Binv = None

@@ -224,8 +224,11 @@ class ForceAccPlugin:
         batch. Two-phase seed: a cold polished solve with the proximal term
         centred on the equal-share support forces, then a re-solve with the
         deployment regularization centred on that solution, so the carried
-        warm state (incl. KKT inverses) matches the RT solves."""
-        data = dynamics.compute_model_data(self.model, state)
+        warm state (incl. KKT inverses) matches the RT solves. The model
+        update runs the plain sweeps (``compute_model_data``'s
+        ``plain_sweeps`` says why); the ticks run the kernel's."""
+        data = dynamics.compute_model_data(self.model, state,
+                                           plain_sweeps=True)
         refs = self.stack.ref_init(self.model, data, state)
         refs["COM"] = self.com_task.ref_init(self.model, data, state)
         if self.switchable_contacts:

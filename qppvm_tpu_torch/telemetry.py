@@ -30,13 +30,15 @@ nothing from the card: it puts no work on the device, so it costs no
 launch and may run inside a CUDA graph capture.
 
 The program's spans (PERF.md, section 3): ``tick`` (root, a ForceAcc tick)
-> ``model_update`` (> ``model_update.fk``, ``.mass_matrix``,
-``.nonlinear``, ``.jacobians``, ``.velocities``, ``.bias``, ``.com``,
-``.binv``), ``stack``, ``cascade`` (> ``cascade.level``), ``torque``,
-``aux``; ``plant`` (root) > ``plant.substep``; ``plan`` (root, an MPPI
-update) > ``rollout.step``. Its counters: ``level_qp.launch``,
-``ns_inverse.launch``, ``cascade.level``, ``cascade.fallback``,
-``model.plain_inverse``, ``logger.host_copy``.
+> ``model_update`` (> ``model_update.sweep`` where the model-sweep kernel
+runs, else ``model_update.fk``, ``.nonlinear`` and ``.bias``; then
+``.mass_matrix``, ``.jacobians``, ``.velocities``, ``.com``, ``.binv``),
+``stack``, ``cascade`` (> ``cascade.level``), ``torque``, ``aux``;
+``plant`` (root) > ``plant.substep``; ``plan`` (root, an MPPI update) >
+``rollout.step``. Its counters: ``level_qp.launch``,
+``ns_inverse.launch``, ``model_sweep.launch``, ``cascade.level``,
+``cascade.fallback``, ``model.plain_inverse``, ``model.plain_sweep``,
+``logger.host_copy``.
 """
 from __future__ import annotations
 

@@ -66,6 +66,7 @@ import pytest
 import torch
 
 from qppvm_tpu_torch import telemetry
+from qppvm_tpu_torch.model import model_sweep
 from qppvm_tpu_torch.opt import level_qp, ns_inverse
 from qppvm_tpu_torch.opt import level_qp_parity as parity
 
@@ -588,7 +589,8 @@ def test_ddp_plan_card_matches_cpu(device, robot, feet):
 def test_sharded_plan_on_two_ranks_matches_one_process(device, tmp_path):
     """The dryrun's planner (qppvm_tpu_torch/dryrun.py) with 16 samples on
     2 gloo ranks of the card, each rolling its 8 out through the level
-    kernel (16 level launches, 1 NS launch, 0 fallbacks a plan): U_new the
+    kernel (16 level launches, 1 NS launch, 0 fallbacks and 8 model-sweep
+    launches, one a horizon step, a plan): U_new the
     same on both ranks and within tests/test_mpc_parallel.py's bars of
     the same plan in one process."""
     import numpy as np
@@ -599,13 +601,14 @@ def test_sharded_plan_on_two_ranks_matches_one_process(device, tmp_path):
 
     level_qp.library()
     ns_inverse.library()
+    model_sweep.library()
     got = meshlib.run_ranks(ranks.card_plan, 2, timeout_s=300.0,
                             group_timeout_s=120.0,
                             init_file=str(tmp_path / "rendezvous"))
     U1, info1, counts1, _ = dryrun.plan_step(16, device)
-    assert counts1 == (16, 1, 0)
+    assert counts1 == (16, 1, 0, 8)
     for U, cost, counts in got:
-        assert counts == (16, 1, 0)
+        assert counts == (16, 1, 0, 8)
         np.testing.assert_array_equal(U, got[0][0])
         np.testing.assert_allclose(U, U1.cpu().numpy(), atol=1e-4)
         np.testing.assert_allclose(cost, float(info1["cost_mean"]),

@@ -136,7 +136,8 @@ def one_rank(x0, U):
 def card_plan(rank):
     """One rank of tests/test_torch_cuda.py's two-rank plan: the dryrun's
     planner with 16 samples on the card. Returns (U_new, cost_mean, the
-    plan's counts of level launches, NS launches and fallbacks)."""
+    plan's counts of level launches, NS launches, fallbacks and model-sweep
+    launches)."""
     from qppvm_tpu_torch import dryrun
 
     dev = dryrun.rank_device(rank, "cuda")
