@@ -127,9 +127,14 @@ Phases, each fatal on failure:
    every solved tick, the trace flushed with 1,500 rows; 3 NS launches a
    tick (the tick's Binv and one a plant substep, + on_start's), 0 plain
    inverses, 0 level launches; LoopStats p50 / p99 / mean ms and deadline
-   misses against 1 ms, the plant alone and the control share. The first
-   5 torques held to the same ticks with the plain NS inverse; 5 ticks in
-   the level kernel's profile (rho_updates 0, backend "kernel") chained
+   misses against 1 ms, the plant alone and the control share. The same
+   1,500 ticks in the benchmark's configuration
+   (benchmark/configs/dual_arm_qppvm.yaml: the level kernel's profile,
+   rho_updates 0, iters 60) under the same gates, with 2 level launches a
+   tick, 0 fallbacks in the ticks (on_start's 2 polished levels run the
+   plain solver) and 3 NS launches a tick; its p50 / p99 / mean ms. The
+   first 5 torques held to the same ticks with the plain NS inverse; 5
+   ticks in the level kernel's profile (rho_updates 0, backend "kernel") chained
    from one on_start: 2 level launches and 0 fallbacks a tick, tau held to
    the plain level solver's chain at phase 3's bars. Config 1, the arm
    (iters 40) holding home for 500 ticks: no failure, |q - q_home| < 0.05,
@@ -371,6 +376,9 @@ QPPVM_TICKS, QPPVM_SETTLE, QPPVM_MAX_FAILS = 1500, 500, 15
 QPPVM_ERR_MEAN, QPPVM_ERR_MAX, TAU_LIMIT_TOL = 0.05, 0.12, 1e-4
 ARM7_TICKS, ARM7_Q_TOL, ARM7_QD_TOL = 500, 0.05, 0.5
 QPPVM_SIM_TICKS, QPPVM_COMPARE = 200, 5
+# the benchmark's QPPVM configuration (cell dual_arm-qppvm-b1): the same
+# sinusoid in the level kernel's profile, read as a scenario file
+QPPVM_BENCH_CONFIG = ROOT / "benchmark" / "configs" / "dual_arm_qppvm.yaml"
 # phases run in processes of their own, beside phases 5 to 14 in this one,
 # once phases 2 to 4 (the kernels' device times) are done: the two longest
 # host-bound loops; each ends by printing RESULT_TAG and its result
@@ -1688,6 +1696,49 @@ def qppvm_loop(torch, plugin, robot, ticks, trace_path, ref_gen=None):
         return stats, {k: data[k] for k in data.files}
 
 
+def qppvm_sine_gates(torch, model, st, stats, tr, robot, label):
+    """The sinusoid's gates on a dual-arm QPPVM loop of QPPVM_TICKS ticks
+    from ``st`` (its trace ``tr``, ``robot`` after the loop): at most
+    QPPVM_MAX_FAILS failed ticks, the left EE's error after tick
+    QPPVM_SETTLE (mean, max) under QPPVM_ERR_MEAN and QPPVM_ERR_MAX, and
+    tau_desired within +/-(tau_max + TAU_LIMIT_TOL) on every solved tick.
+    Returns (EE error mean, max, |tau_desired| - tau_max at most)."""
+    from qppvm_tpu_torch.model import kinematics
+    from qppvm_tpu_torch.runtime.trajectory import qppvm_sinusoid
+
+    dev = st.q.device
+    if tr["tau_desired"].shape[0] != QPPVM_TICKS:
+        fail(f"{label} trace: {tr['tau_desired'].shape[0]} rows")
+    # the left EE after each tick's move against that tick's reference
+    q_after = torch.cat([torch.tensor(tr["q"][1:, 0], dtype=torch.float32,
+                                      device=dev), robot.state.q])
+    p_ee = kinematics.link_pose(model, kinematics.fk(
+        model, type(st).init(model, q=q_after, batch=QPPVM_TICKS)),
+        "arm1_7")[1]
+    p_start = kinematics.link_pose(model, kinematics.fk(model, st),
+                                   "arm1_7")[1]
+    t_ticks = torch.arange(QPPVM_TICKS, device=dev, dtype=torch.float32)
+    p_ref = qppvm_sinusoid(p_start, 1e-3 * t_ticks)   # (T, 3)
+    errs = torch.linalg.norm(p_ee - p_ref, dim=-1)[QPPVM_SETTLE + 1:]
+    err_mean, err_max = float(errs.mean()), float(errs.max())
+    failed = tr["solver_failed"] != 0.0
+    tau_max = model.tau_max.cpu().numpy()
+    over = float((np.abs(tr["tau_desired"][~failed, 0]) - tau_max).max())
+    print(f"{label}: {QPPVM_TICKS} ticks through ControlLoop, "
+          f"{stats.solver_failures} failed, left EE error after tick "
+          f"{QPPVM_SETTLE}: mean {err_mean:.5f} m, max {err_max:.5f} m; "
+          f"|tau_desired| - tau_max up to {over:.3g} Nm on the solved "
+          f"ticks; trace {tr['tau_desired'].shape[0]} rows")
+    if stats.solver_failures > QPPVM_MAX_FAILS:
+        fail(f"{label}: {stats.solver_failures} failed ticks")
+    if not (err_mean < QPPVM_ERR_MEAN and err_max < QPPVM_ERR_MAX):
+        fail(f"{label}: EE error mean {err_mean:.4f} max {err_max:.4f}")
+    if not over <= TAU_LIMIT_TOL:
+        fail(f"{label}: tau_desired outside the torque limits by "
+             f"{over:.3g} Nm")
+    return err_mean, err_max, over
+
+
 def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     """Phase 11: the reference's QPPVMPlugin through ControlLoop: config 2
     (the dual arm on the moving sinusoid) and config 1 (the arm holding
@@ -1697,11 +1748,11 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     {path: NS launches})."""
     import tempfile
 
-    from qppvm_tpu_torch.model import dynamics, kinematics
+    from qppvm_tpu_torch import config as cfglib
+    from qppvm_tpu_torch.model import dynamics
     from qppvm_tpu_torch.opt import linalg
     from qppvm_tpu_torch.plugins.qppvm import QPPVMPlugin
     from qppvm_tpu_torch.runtime.robot_interface import SimRobot
-    from qppvm_tpu_torch.runtime.trajectory import qppvm_sinusoid
 
     model = zoo.dual_arm(device=dev)
     plugin = QPPVMPlugin(model, iters=60)
@@ -1735,36 +1786,43 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
              f"0, 0")
     # one model update a tick and on_start's
     gate_sweeps("qppvm_dual_arm_loop_b1", QPPVM_TICKS + 1)
-    if tr["tau_desired"].shape[0] != QPPVM_TICKS:
-        fail(f"QPPVM trace: {tr['tau_desired'].shape[0]} rows")
-    # the left EE after each tick's move against that tick's reference
-    q_after = torch.cat([torch.tensor(tr["q"][1:, 0], dtype=torch.float32,
-                                      device=dev), robot.state.q])
-    p_ee = kinematics.link_pose(model, kinematics.fk(
-        model, type(st).init(model, q=q_after, batch=QPPVM_TICKS)),
-        "arm1_7")[1]
-    p_start = kinematics.link_pose(model, kinematics.fk(model, st),
-                                   "arm1_7")[1]
-    t_ticks = torch.arange(QPPVM_TICKS, device=dev, dtype=torch.float32)
-    p_ref = qppvm_sinusoid(p_start, 1e-3 * t_ticks)   # (T, 3)
-    errs = torch.linalg.norm(p_ee - p_ref, dim=-1)[QPPVM_SETTLE + 1:]
-    err_mean, err_max = float(errs.mean()), float(errs.max())
-    failed = tr["solver_failed"] != 0.0
-    tau_max = model.tau_max.cpu().numpy()
-    over = np.abs(tr["tau_desired"][~failed, 0]) - tau_max
-    print(f"QPPVM dual arm: {QPPVM_TICKS} ticks through ControlLoop, "
-          f"{stats.solver_failures} failed, left EE error after tick "
-          f"{QPPVM_SETTLE}: mean {err_mean:.5f} m, max {err_max:.5f} m; "
-          f"|tau_desired| - tau_max up to {float(over.max()):.3g} Nm on "
-          f"the solved ticks; {ns_launches} NS launches, 0 plain inverses, "
-          f"0 level launches; trace {tr['tau_desired'].shape[0]} rows")
-    if stats.solver_failures > QPPVM_MAX_FAILS:
-        fail(f"QPPVM loop: {stats.solver_failures} failed ticks")
-    if not (err_mean < QPPVM_ERR_MEAN and err_max < QPPVM_ERR_MAX):
-        fail(f"QPPVM loop: EE error mean {err_mean:.4f} max {err_max:.4f}")
-    if not float(over.max()) <= TAU_LIMIT_TOL:
-        fail(f"QPPVM loop: tau_desired outside the torque limits by "
-             f"{float(over.max()):.3g} Nm")
+    print(f"QPPVM dual arm, default profile: {ns_launches} NS launches, 0 "
+          f"plain inverses, 0 level launches")
+    qppvm_sine_gates(torch, model, st, stats, tr, robot,
+                     "QPPVM dual arm, default profile")
+
+    # the benchmark's configuration: the same sinusoid in the level
+    # kernel's profile, 2 launches a tick
+    cfg = cfglib.load_scenario(str(QPPVM_BENCH_CONFIG))
+    kmodel = cfglib.build_model(cfg, dev)
+    kplugin = cfglib.build_plugin(cfg, kmodel)
+    krobot = cfglib.build_sim(cfg, kmodel)
+    zero(NS)
+    zero(LEVEL)
+    zero(FALLBACK)
+    zero(SWEEP, PLAIN_SWEEP)
+    t0 = time.perf_counter()
+    kstats, ktr = qppvm_loop(torch, kplugin, krobot, QPPVM_TICKS,
+                             tmp.name + "/dual_arm_kernel", sinusoid)
+    krun_s = time.perf_counter() - t0
+    klevels, kns = counted(LEVEL), counted(NS)
+    # on_start's two cold, polished levels run the plain solver
+    if (klevels, counted(FALLBACK), kns) != (
+            2 * QPPVM_TICKS, 2, (1 + krobot.substeps) * QPPVM_TICKS + 1):
+        fail(f"QPPVM kernel-profile loop: {klevels} level launches, "
+             f"{counted(FALLBACK)} fallbacks, {kns} NS launches; expected "
+             f"{2 * QPPVM_TICKS}, 2 (on_start's) and "
+             f"{(1 + krobot.substeps) * QPPVM_TICKS + 1}")
+    gate_sweeps("qppvm_kernel_profile_loop_b1", QPPVM_TICKS + 1)
+    print(f"QPPVM dual arm, {QPPVM_BENCH_CONFIG.name}: {klevels} level "
+          f"launches (2 a tick), 0 fallbacks in the ticks, {kns} NS "
+          f"launches")
+    qppvm_sine_gates(torch, kmodel, krobot.model.home_state(), kstats, ktr,
+                     krobot, f"QPPVM dual arm, {QPPVM_BENCH_CONFIG.name}")
+    print(f"[{card}] QPPVM dual arm loop B=1, {QPPVM_BENCH_CONFIG.name} "
+          f"(ControlLoop, {QPPVM_TICKS} ticks in {krun_s:.1f} s): tick p50 "
+          f"{kstats.p50_ms:.3f} ms, p99 {kstats.p99_ms:.3f} ms, mean "
+          f"{kstats.mean_ms:.3f} ms")
 
     # the plant alone at zero torque
     robot.set_reference(tau_ref=torch.zeros_like(robot.state.q))
@@ -1871,8 +1929,10 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     gate_sweeps("qppvm_arm7_loop_b1", ARM7_TICKS + 1)
     tmp.cleanup()
     return ({"qppvm_dual_arm_loop_b1": levels,
-             "qppvm_kernel_profile_chain_b1": chain_launches},
+             "qppvm_kernel_profile_chain_b1": chain_launches,
+             "qppvm_kernel_profile_loop_b1": klevels},
             {"qppvm_dual_arm_loop_b1": ns_launches,
+             "qppvm_kernel_profile_loop_b1": kns,
              "qppvm_arm7_loop_b1": arm_ns})
 
 

@@ -29,13 +29,15 @@ The tracer runs no tensor operation, records no CUDA event and reads
 nothing from the card: it puts no work on the device, so it costs no
 launch and may run inside a CUDA graph capture.
 
-The program's spans (PERF.md, section 3): ``tick`` (root, a ForceAcc tick)
-> ``model_update`` (> ``model_update.sweep`` where the model-sweep kernel
+The program's spans (PERF.md, section 3): ``tick`` (root, a control tick:
+``ForceAccPlugin._step_impl`` or ``QPPVMPlugin.control_loop``) >
+``model_update`` (> ``model_update.sweep`` where the model-sweep kernel
 runs, else ``model_update.fk``, ``.nonlinear`` and ``.bias``; then
 ``.mass_matrix``, ``.jacobians``, ``.velocities``, ``.com``, ``.binv``),
-``stack``, ``cascade`` (> ``cascade.level``), ``torque``, ``aux``;
-``plant`` (root) > ``plant.substep``; ``plan`` (root, an MPPI update) >
-``rollout.step``. Its counters: ``level_qp.launch``,
+``stack``, ``cascade`` (> ``cascade.level``), ``torque`` (ForceAcc: qddot,
+the wrenches and ``rnea``; QPPVM: the failure gate and tau_qp + h),
+``aux`` (the tick's other outputs); ``plant`` (root) > ``plant.substep``;
+``plan`` (root, an MPPI update) > ``rollout.step``. Its counters: ``level_qp.launch``,
 ``ns_inverse.launch``, ``model_sweep.launch``, ``cascade.level``,
 ``cascade.fallback``, ``model.plain_inverse``, ``model.plain_sweep``,
 ``logger.host_copy``.

@@ -10,7 +10,9 @@ the CPU:
 - under ``torch.profiler`` the tracer is on and the profiler's events
   carry the ``qppvm::`` names;
 - one ForceAcc tick of the zoo humanoid and its plant period record every
-  layer of the tick;
+  layer of the tick, and so do one QPPVM tick of the zoo dual arm (the
+  level kernel's profile, the mass matrix's inverse in the model update)
+  and its plant period;
 - counters: always counted, per unit while on, reset by name, no update
   lost between threads; ``cascade.level`` and ``cascade.fallback`` on the
   kernel backend count every level and every level outside the kernel's
@@ -28,8 +30,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from qppvm_tpu_torch import telemetry
+from qppvm_tpu_torch.model import zoo
 from qppvm_tpu_torch.opt import hierarchy
+from qppvm_tpu_torch.plugins.qppvm import QPPVMPlugin
 from qppvm_tpu_torch.runtime import rt_loop
+from qppvm_tpu_torch.runtime.robot_interface import SimRobot
 
 TICK_CHILDREN = ("model_update", "stack", "cascade", "torque", "aux")
 MODEL_STAGES = ("fk", "mass_matrix", "nonlinear", "jacobians", "velocities",
@@ -230,6 +235,33 @@ def humanoid():
     return rt_loop.humanoid_loop("kernel", device="cpu")
 
 
+def assert_one_unit(recs, stages, substeps):
+    """A tick and its plant period recorded as unit 1: every layer of the
+    tick under ``tick``, the model update's ``stages``, two cascade levels,
+    the plant's ``substeps``, the level counts, and self times that sum to
+    the roots' durations."""
+    names = [r[0] for r in recs]
+    assert all(r[4] is not None for r in recs)
+    assert [r[2] for r in recs] == [1] * len(recs)
+    tick = names.index("tick")
+    assert recs[tick][1] == -1
+    assert [r[0] for r in recs if r[1] == tick] == list(TICK_CHILDREN)
+    mu = names.index("model_update")
+    assert [r[0] for r in recs if r[1] == mu] == [
+        f"model_update.{s}" for s in stages]
+    cascade = names.index("cascade")
+    assert [r[0] for r in recs if r[1] == cascade] == ["cascade.level"] * 2
+    plant = names.index("plant")
+    assert recs[plant][1] == -1
+    assert [r[0] for r in recs if r[1] == plant] == [
+        "plant.substep"] * substeps
+    counted = telemetry.counts(1)
+    assert counted["cascade.level"] == 2 and counted["cascade.fallback"] == 0
+    own = self_ns(recs)
+    roots = sum(r[4] - r[3] for r in recs if r[1] == -1)
+    assert sum(own) == roots and min(own) >= 0
+
+
 def test_forceacc_tick_and_plant_record_every_layer(humanoid):
     loop = humanoid
     robot = loop.robot
@@ -239,30 +271,27 @@ def test_forceacc_tick_and_plant_record_every_layer(humanoid):
     robot.set_reference(tau_ref=tau, q_ref=state.q)
     robot.move()
     telemetry.enable(False)
-    recs = telemetry.records()
-    names = [r[0] for r in recs]
-    assert all(r[4] is not None for r in recs)
-    assert [r[2] for r in recs] == [1] * len(recs)
-    tick = names.index("tick")
-    children = [r[0] for r in recs if r[1] == tick]
-    assert children == list(TICK_CHILDREN)
-    mu = names.index("model_update")
-    assert [r[0] for r in recs if r[1] == mu] == [
-        f"model_update.{s}" for s in MODEL_STAGES]
-    cascade = names.index("cascade")
-    levels = [r[0] for r in recs if r[1] == cascade]
-    assert levels == ["cascade.level"] * len(loop.plugin.stack.levels) == [
-        "cascade.level"] * 2
-    plant = names.index("plant")
-    assert recs[plant][1] == -1
-    assert [r[0] for r in recs if r[1] == plant] == [
-        "plant.substep"] * robot.substeps
-    counted = telemetry.counts(1)
-    assert counted["cascade.level"] == 2 and counted["cascade.fallback"] == 0
-    # the self times of the tick's and the plant's spans sum to the roots'
-    own = self_ns(recs)
-    roots = sum(r[4] - r[3] for r in recs if r[1] == -1)
-    assert sum(own) == roots and min(own) >= 0
+    assert len(loop.plugin.stack.levels) == 2
+    assert_one_unit(telemetry.records(), MODEL_STAGES, robot.substeps)
+    assert bool(torch.isfinite(tau).all()) and not aux.solver_failed.any()
+
+
+def test_qppvm_tick_and_plant_record_every_layer():
+    model = zoo.dual_arm(device="cpu")
+    plugin = QPPVMPlugin(model, iters=60, solver_opts=dict(
+        backend="kernel", rho_updates=0, warm_kinv_iters=12, scale_iters=5,
+        pinv_ns_iters=7))
+    robot = SimRobot(model, dt=1e-3, substeps=2)
+    refs, warm, start = plugin.on_start(robot.state)
+    refs = dict(refs, LEFT_ARM=plugin.make_refs(start, 1e-3))
+    telemetry.enable()
+    state = robot.state
+    tau, _, aux = plugin.control_loop(state, refs, warm)
+    robot.set_reference(tau_ref=tau, q_ref=state.q)
+    robot.move()
+    telemetry.enable(False)
+    assert_one_unit(telemetry.records(), MODEL_STAGES + ("binv",),
+                    robot.substeps)
     assert bool(torch.isfinite(tau).all()) and not aux.solver_failed.any()
 
 
