@@ -283,7 +283,8 @@ class ForceAccPlugin:
         """Model update -> stack build -> cascade solve -> (tau, qddot,
         wrenches). Returns ``(tau, warm_new, infos, parts)`` with ``parts =
         (data, x, qddot, wrenches, tau_c_full)``; ``tau`` is the raw
-        actuated-row torque."""
+        actuated-row torque: the inverse dynamics ``B qddot + h`` from the
+        model data, less ``sum J_c^T f_c``."""
         model = self.model
         data = dynamics.compute_model_data(model, state)
         stack_data = self.stack.build(model, data, state, refs,
@@ -303,8 +304,8 @@ class ForceAccPlugin:
                                          cl)[2][:, :self.wrench_dim]
                 tau_c_full = tau_c_full + (Jc.transpose(-1, -2)
                                            @ w.value(x)[..., None])[..., 0]
-            tau_full = dynamics.rnea(model, state, qddot, gravity=True,
-                                     kin=data.kin)
+            # inverse dynamics; B includes the armature, as rnea does
+            tau_full = (data.B @ qddot[..., None])[..., 0] + data.h
             tau = (tau_full - tau_c_full)[:, 6:]
         return tau, warm_new, infos, (data, x, qddot, wr, tau_c_full)
 

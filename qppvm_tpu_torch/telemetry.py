@@ -35,7 +35,8 @@ The program's spans (PERF.md, section 3): ``tick`` (root, a control tick:
 runs, else ``model_update.fk``, ``.nonlinear`` and ``.bias``; then
 ``.mass_matrix``, ``.jacobians``, ``.velocities``, ``.com``, ``.binv``),
 ``stack``, ``cascade`` (> ``cascade.level``), ``torque`` (ForceAcc: qddot,
-the wrenches and ``rnea``; QPPVM: the failure gate and tau_qp + h),
+the wrenches, sum J_c^T f_c and B qddot + h; QPPVM: the failure gate and
+tau_qp + h),
 ``aux`` (the tick's other outputs); ``plant`` (root) > ``plant.substep``;
 ``plan`` (root, an MPPI update) > ``rollout.step``. Its counters: ``level_qp.launch``,
 ``ns_inverse.launch``, ``model_sweep.launch``, ``cascade.level``,

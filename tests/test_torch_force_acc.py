@@ -32,7 +32,7 @@ from qppvm_tpu.plugins.force_acc import ForceAccPlugin as JForceAcc
 from qppvm_tpu.stack.autostack import AutoStack as JAutoStack
 from qppvm_tpu.tasks.base import AssembleCtx as JAssembleCtx
 from qppvm_tpu_torch import telemetry
-from qppvm_tpu_torch.model import convert, dynamics, zoo
+from qppvm_tpu_torch.model import convert, dynamics, kinematics, spatial, zoo
 from qppvm_tpu_torch.mpc.rollout import standing_state
 from qppvm_tpu_torch.opt import qp
 from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
@@ -402,3 +402,98 @@ def test_com_task_rows_match_reference(jax_side, torch_side):
     assert tuple(A.shape) == A_ref.shape == (B, 6, 44)
     _close(A, A_ref)
     _close(b, b_ref)
+
+
+# step_core's torque against the RNEA pass it replaced: (robot, contacts,
+# options) on point contacts, friction cones and 6D wrenches
+TORQUE_CASES = {
+    "humanoid-points": ("humanoid", CONTACTS, {}),
+    "centaur-cones": ("centaur", ("foot_fl", "foot_fr", "foot_hr", "foot_hl"),
+                      dict(use_friction_cones=True, mu=0.7)),
+    "biped-6d": ("biped", CONTACTS, dict(wrench_dim=6,
+                                         use_friction_cones=True)),
+}
+# |tau - tau_rnea| as a share of max |tau_rnea|: roundoff of two orders of
+# summation
+TORQUE_BARS = {torch.float32: 2e-6, torch.float64: 1e-10}
+
+
+def _random_state(model, contacts, dtype, seed):
+    """B standing states with q perturbed by 0.01 N(0, 1), a random base
+    rotation and small joint and base velocities."""
+    st = standing_state(model, contacts, batch=B)
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g,  # noqa: E731
+                                      dtype=dtype)
+    return dataclasses.replace(
+        st, q=st.q + 0.01 * rand(B, model.nj), qd=0.1 * rand(B, model.nj),
+        base_vel=0.05 * rand(B, 6),
+        base_rot=st.base_rot @ spatial.so3_exp(0.2 * rand(B, 3)))
+
+
+def _torque_case(robot, contacts, options, dtype, seed=0):
+    """The plugin on ``robot`` in ``dtype`` in the real-time profile, with
+    its on_start's references and warm state at B random states."""
+    tm = zoo.by_name(robot, dtype=dtype, device="cpu")
+    plugin = ForceAccPlugin(tm, contact_links=contacts, iters=12,
+                            dtype=dtype,
+                            solver_opts=dict(PROFILE, backend="kernel"),
+                            **options)
+    st = _random_state(tm, contacts, dtype, seed)
+    refs, warm, _ = plugin.on_start(st)
+    return plugin, st, refs, warm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("case", list(TORQUE_CASES))
+def test_step_core_torque_is_the_inverse_dynamics(case, dtype):
+    """tau = B qddot + h - sum J_c^T f_c on the actuated rows equals the
+    RNEA of the tick's qddot less the contact torque it returns."""
+    plugin, st, refs, warm = _torque_case(*TORQUE_CASES[case], dtype)
+    tau, _, _, (data, _, qddot, _, tau_c_full) = plugin.step_core(st, refs,
+                                                                  warm)
+    ref = (dynamics.rnea(plugin.model, st, qddot, gravity=True,
+                         kin=data.kin) - tau_c_full)[:, 6:]
+    assert tau.dtype == dtype and tau.shape == ref.shape
+    err = float((tau - ref).abs().max())
+    assert err <= TORQUE_BARS[dtype] * float(ref.abs().max()), err
+
+
+def test_step_core_torque_walks_no_tree(monkeypatch):
+    """The torque layer reads B and h from the tick's model data: with the
+    model data computed beforehand and ``dynamics.rnea`` raising, step_core
+    gives the same tau."""
+    plugin, st, refs, warm = _torque_case(*TORQUE_CASES["humanoid-points"],
+                                          torch.float32)
+    tau_ref = plugin.step_core(st, refs, warm)[0]
+    data = dynamics.compute_model_data(plugin.model, st)
+
+    def tree_walk(*args, **kwargs):
+        raise AssertionError("step_core called dynamics.rnea")
+
+    monkeypatch.setattr(dynamics, "compute_model_data",
+                        lambda *args, **kwargs: data)
+    monkeypatch.setattr(dynamics, "rnea", tree_walk)
+    assert torch.equal(plugin.step_core(st, refs, warm)[0], tau_ref)
+
+
+def test_inverse_dynamics_is_b_qddot_plus_h_for_a_scaled_model():
+    """The identity the torque rests on, for the rollout's per-item
+    mass-scaled model (inertia (B, nj, 6, 6)): the mass matrix and h of
+    that model give its RNEA."""
+    dtype = torch.float64
+    tm = zoo.quadruped(dtype=dtype, device="cpu")
+    ms = torch.tensor([0.8, 1.3], dtype=dtype)
+    model_s = dataclasses.replace(
+        tm, inertia=tm.inertia * ms[:, None, None, None],
+        base_inertia=tm.base_inertia * ms[:, None, None])
+    st = _random_state(tm, ("foot_fl", "foot_fr", "foot_hr", "foot_hl"),
+                       dtype, seed=1)
+    udot = torch.randn((B, tm.nv), generator=torch.Generator().manual_seed(2),
+                       dtype=dtype)
+    kin = kinematics.fk(model_s, st)
+    tau = ((dynamics.mass_matrix(model_s, st, kin=kin) @ udot[..., None])
+           [..., 0] + dynamics.nonlinear_term(model_s, st, kin=kin))
+    ref = dynamics.rnea(model_s, st, udot, gravity=True, kin=kin)
+    assert float((tau - ref).abs().max()) <= 1e-10 * float(ref.abs().max())
