@@ -30,7 +30,8 @@ Phases, each fatal on failure:
    by 0.01 N(0, 1)); gate on zero solver failures and finite torques,
    require 2 kernel launches and 0 fallbacks per tick and 1 model-sweep
    launch a tick with no plain sweep, compare tau with the
-   same chain run through the plain level solver (backend "torch"), and
+   same chain run through the plain level solver (level_qp's launch
+   patched by its plain version: ``plain_levels``), and
    time the tick with either;
 4. drive the NS-inverse path (ns_inverse, bench_pallas.py's B 1024, n 64,
    26 iterations on K = M M^T + 0.5 I) and the simulator's shape (the
@@ -134,7 +135,7 @@ Phases, each fatal on failure:
    tick, 0 fallbacks in the ticks (on_start's 2 polished levels run the
    plain solver) and 3 NS launches a tick; its p50 / p99 / mean ms. The
    first 5 torques held to the same ticks with the plain NS inverse; 5
-   ticks in the level kernel's profile (rho_updates 0, backend "kernel") chained
+   ticks in the level kernel's profile (rho_updates 0) chained
    from one on_start: 2 level launches and 0 fallbacks a tick, tau held to
    the plain level solver's chain at phase 3's bars. Config 1, the arm
    (iters 40) holding home for 500 ticks: no failure, |q - q_home| < 0.05,
@@ -159,10 +160,12 @@ Phases, each fatal on failure:
    gated on >= 3 launches and commits, every age after the first commit
    > 0, max age >= 20, every committed plan's solver_fail_frac 0, no
    failed tick, upright; 16 level launches and 1 NS launch a plan, 2 NS
-   launches a tick; the tick's p50 / p99 with a plan in flight and
+   launches a tick, 2 fallbacks a tick (the tick's default profile runs
+   qp.solve); the tick's p50 / p99 with a plan in flight and
    without, the commit latencies;
 14. the entry points: run.main on configs 1 to 4 for 20 ticks and on
-   config 5 with one 512 x 8 plan, each JSON line's keys, finite numbers,
+   config 5 with one 512 x 8 plan (16 level launches, 1 NS launch, 4
+   fallbacks: on_start's), each JSON line's keys, finite numbers,
    the card's name and (floating bases) the final base z within 0.05 m of
    the standing height; then runtime/native.py's NativeExecutor driving
    the quadruped's tick for 100 ticks at a 100 ms period, its torques
@@ -231,6 +234,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -271,7 +275,8 @@ QPPVM_ROBOTS = ("dual_arm", "arm7")
 QPPVM_LEVEL = dict(iters=60, warm_kinv_iters=12, scale_iters=5,
                    pinv_ns_iters=7)
 FEET = ("foot_fl", "foot_fr", "foot_hr", "foot_hl")
-BACKENDS = ("kernel", "torch")   # level solver: CUDA kernel, plain qp.solve
+# level solver: the CUDA kernel, or its plain version (``plain_levels``)
+BACKENDS = ("kernel", "torch")
 # tau of the kernel chain vs the plain chain: float32 sums in another order
 # through 5 chained 12-iteration solves; a wrong row moves tau by O(1) Nm
 TAU_ATOL, TAU_RTOL = 5e-3, 1e-3
@@ -395,7 +400,7 @@ DRYRUN_U_ATOL, DRYRUN_COST_RTOL = 1e-4, 1e-3
 RING_PLUGIN = dict(contact_links=("foot_fl", "foot_fr", "foot_hr", "foot_hl"),
                    waist_link="pelvis", iters=20, use_friction_cones=True,
                    mu=0.5, foot_tasks_6d=False)
-RING_ROLLOUT = dict(horizon=8, dt=0.01, qp_iters=12, qp_backend="kernel")
+RING_ROLLOUT = dict(horizon=8, dt=0.01, qp_iters=12)
 RING_RTOL, RING_ATOL, RING_DEFECT = 1e-5, 1e-6, 1e-5
 # phase 18 (b): tests/test_trace_stream.py's loop, its T and CHUNK
 STREAM_TICKS, STREAM_CHUNK = 64, 16
@@ -432,8 +437,7 @@ WALK_JAX = ("foot_hl +0.05899 m, stance feet moved <= 0.0089 m, up 0.99937, "
 # through the level kernel), consumed 10 ticks a step
 ASYNC_PLUGIN = dict(contact_links=CONTACTS, waist_link="pelvis", iters=40)
 ASYNC_MPPI = dict(n_samples=512, horizon=8, push_std=30.0)
-ASYNC_ROLLOUT = dict(horizon=8, qp_iters=12, qp_warm_kinv_iters=8,
-                     qp_backend="kernel")
+ASYNC_ROLLOUT = dict(horizon=8, qp_iters=12, qp_warm_kinv_iters=8)
 ASYNC_TICKS, ASYNC_SHOVE, ASYNC_REPLAN, ASYNC_TICKS_PER_STEP = 400, 150, 20, 10
 # phase 14: run.main on the shipped configurations, and the native paced
 # executor driving the quadruped's tick (tests/test_native_runtime.py's
@@ -653,20 +657,45 @@ def import_port():
     return qppvm_tpu_torch
 
 
+def plain_levels():
+    """A patch under which every level the level kernel takes runs its
+    plain version (``level_qp.solve_level_reference``) in place of the
+    launch: the plain side of each kernel-against-plain comparison."""
+    from qppvm_tpu_torch.opt import level_qp
+    return mock.patch.object(level_qp, "_launch",
+                             level_qp.solve_level_reference)
+
+
+def routed(b, fn):
+    """``fn`` with its levels through level solver ``b`` of BACKENDS: the
+    kernel as built, or under ``plain_levels``."""
+    if b == "kernel":
+        return fn
+
+    def call(*args, **kwargs):
+        with plain_levels():
+            return fn(*args, **kwargs)
+    return call
+
+
+def on_route(b, obj, method="_step_impl"):
+    """``obj`` with ``method`` through level solver ``b`` (``routed``)."""
+    setattr(obj, method, routed(b, getattr(obj, method)))
+    return obj
+
+
 def main_path_inputs(torch, dev, model, contacts, **options):
-    """A batched tick's set-up on ``dev``: a ForceAccPlugin per level-solver
-    backend on ``model`` with ``options`` and the RT profile, and the tick's
+    """A batched tick's set-up on ``dev``: a ForceAccPlugin per level
+    solver on ``model`` with ``options`` and the RT profile, and the tick's
     inputs (states with q perturbed by 0.01 N(0, 1), references and warm
     state from the kernel plugin's on_start, expanded to B)."""
     from qppvm_tpu_torch.mpc.rollout import standing_state
     from qppvm_tpu_torch.opt import qp
     from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
 
-    plugins = {b: ForceAccPlugin(model, contact_links=contacts,
-                                 waist_link="pelvis", iters=12,
-                                 solver_opts=dict(RT_PROFILE, backend=b),
-                                 **options)
-               for b in BACKENDS}
+    plugins = {b: on_route(b, ForceAccPlugin(
+        model, contact_links=contacts, waist_link="pelvis", iters=12,
+        solver_opts=RT_PROFILE, **options)) for b in BACKENDS}
     st = standing_state(model, contacts)
     refs, warm, _ = plugins["kernel"].on_start(st)
     expand = lambda a: a.expand(B, *a.shape[1:]).contiguous()  # noqa: E731
@@ -977,7 +1006,8 @@ def phase_closed_loop(torch, dev, card, hierarchy, level_qp, nsi):
     runs through the NS kernel in both."""
     from qppvm_tpu_torch.runtime import rt_loop
 
-    loop = rt_loop.humanoid_loop("torch", device=dev)
+    loop = rt_loop.humanoid_loop(device=dev)
+    on_route("torch", loop.plugin)
     loop.run(3)                             # warm-up, untimed
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -998,7 +1028,7 @@ def phase_closed_loop(torch, dev, card, hierarchy, level_qp, nsi):
           f"per tick, sim only {sim_ms:.3f} ms per tick, control "
           f"{tick_ms - sim_ms:.3f} ms per tick")
 
-    loop_k = rt_loop.humanoid_loop("kernel", device=dev)
+    loop_k = rt_loop.humanoid_loop(device=dev)
     loop_k.run(1)                           # warm-up, untimed
     torch.cuda.synchronize()
     zero(LEVEL)
@@ -1045,7 +1075,7 @@ def phase_mpc(torch, dev, card, hierarchy, level_qp, nsi):
     from qppvm_tpu_torch.mpc.humanoid_plan import (HORIZON, N_SAMPLES,
                                                    humanoid_plan)
 
-    hp = humanoid_plan("kernel", device=dev)
+    hp = humanoid_plan(device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
     zero(LEVEL)
     zero(FALLBACK)
@@ -1088,7 +1118,7 @@ def phase_mpc(torch, dev, card, hierarchy, level_qp, nsi):
     print(f"[{card}] MPC plan step: {plan_ms:.3f} ms, "
           f"{N_SAMPLES * HORIZON / plan_ms * 1e3:.1f} QP solves/s")
 
-    hp_t = humanoid_plan("torch", device=dev)
+    hp_t = on_route("torch", humanoid_plan(device=dev), "update")
     for d in range(MPC_DRAWS):
         U_s, scen = hp.mpc.sample(g, U)
         U, inf_k = hp.update(U_s, scen)
@@ -1156,15 +1186,15 @@ def phase_centaur_tick(torch, dev, card, hierarchy, level_qp, nsi, zoo):
           f"{CENTAUR_MU}, fz >= {FZ_MIN} within {CONE_TOL} N); tau vs plain "
           f"chain max abs diff {tau_err:.3g} Nm (|tau| up to "
           f"{float(taus_ref[-1].abs().max()):.3g} Nm)")
-    for backend in BACKENDS:
-        times = tick_times_ms(torch, plugins[backend], states, refs_b, warm_b)
-        print(f"[{card}] centaur batched tick B={B} ({backend} level solver): "
+    for b in BACKENDS:
+        times = tick_times_ms(torch, plugins[b], states, refs_b, warm_b)
+        print(f"[{card}] centaur batched tick B={B} ({b} level solver): "
               f"median {statistics.median(times):.3f} ms over {REPS} reps "
               f"(min {min(times):.3f}, max {max(times):.3f})")
     return launches, ns_launches
 
 
-def quadruped_loop(torch, dev, backend, zoo):
+def quadruped_loop(torch, dev, b, zoo):
     """The reference's ForceAccExample in closed loop: the quadruped with
     the default ForceAcc stack (3-force wrench box) under the RT profile,
     on SimRobot at dt 1 ms in QUAD_SUBSTEPS substeps, warm state from
@@ -1174,8 +1204,8 @@ def quadruped_loop(torch, dev, backend, zoo):
     from qppvm_tpu_torch.runtime import rt_loop
 
     model = zoo.quadruped(device=dev)
-    plugin = ForceAccPlugin(model, iters=12,
-                            solver_opts=dict(RT_PROFILE, backend=backend))
+    plugin = on_route(b, ForceAccPlugin(model, iters=12,
+                                        solver_opts=RT_PROFILE))
     robot = ri.SimRobot(model, state=ri.standing_state(model, FEET),
                         dt=1e-3, substeps=QUAD_SUBSTEPS, contact_links=FEET)
     refs, warm, waist = plugin.on_start(robot.state)
@@ -1197,8 +1227,8 @@ def drive_quadruped(torch, loop, waist, ticks, record=0):
         refs = squat if k >= SQUAT_FROM else loop.refs
         tau, w, aux = plugin._step_impl(st, refs, w)
         for _ in range(robot.substeps):
-            st, anchors = loop.sim(st, anchors, tau, st.q, loop.zero_kd,
-                                   loop.zero_kd)
+            st, anchors = robot.step(st, anchors, tau, st.q, loop.zero_kd,
+                                     loop.zero_kd)
         n_fail = n_fail + aux.solver_failed.sum()
         if FZ_WINDOW[0] <= k < FZ_WINDOW[1]:
             fz_sums.append(aux.wrenches[0, :, 2].sum())
@@ -1455,22 +1485,21 @@ def phase_capture(torch, dev, card, hierarchy, level_qp, nsi):
     U0 = torch.zeros((K, H, 3), device=dev)
     scen = {"push": torch.zeros((K, H, 3), device=dev)}
     costs, times = {}, {}
-    for backend in BACKENDS:
-        roll = ro.make_rollout_fn(
-            plugin, ro.RolloutConfig(**CAPTURE_ROLLOUT, qp_backend=backend),
-            ro.default_cost, swing=swing, terminal_cost=term,
-            contact_offsets=offsets)
+    roll = ro.make_rollout_fn(
+        plugin, ro.RolloutConfig(**CAPTURE_ROLLOUT), ro.default_cost,
+        swing=swing, terminal_cost=term, contact_offsets=offsets)
+    for b in BACKENDS:
         zero(LEVEL)
         zero(FALLBACK)
         zero(NS)
         zero(SWEEP, PLAIN_SWEEP)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        c, health = roll(st_k, refs_k, warm_k, U0, scen, thetas)
+        c, health = routed(b, roll)(st_k, refs_k, warm_k, U0, scen, thetas)
         torch.cuda.synchronize()
-        times[backend] = (time.perf_counter() - t0) * 1e3
-        costs[backend] = c
-        if backend == "kernel":
+        times[b] = (time.perf_counter() - t0) * 1e3
+        costs[b] = c
+        if b == "kernel":
             plan_launches = (counted(LEVEL), counted(NS))
             if (counted(LEVEL) != len(shapes) * H
                     or counted(FALLBACK) != 0 or counted(NS) != 1):
@@ -1479,8 +1508,8 @@ def phase_capture(torch, dev, card, hierarchy, level_qp, nsi):
                      f"launches; expected {len(shapes) * H}, 0, 1")
             gate_sweeps("capture_plan_b4", H)
         if not bool(torch.isfinite(c).all()):
-            fail(f"capture plan ({backend}): costs {c.tolist()}")
-        print(f"capture plan ({backend} level solver): "
+            fail(f"capture plan ({b}): costs {c.tolist()}")
+        print(f"capture plan ({b} level solver): "
               + ", ".join(f"{n} {float(v):.6g}" for n, v in zip(names, c))
               + f"; prim_res_max {health['prim_res_max'].tolist()}, "
               f"solver_failed {health['solver_failed'].tolist()}")
@@ -1585,9 +1614,9 @@ def phase_step_recovery(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     plugin = ForceAccPlugin(model, **QUAD_MPC_PLUGIN)
     st = ro.standing_state(model, FEET)
     refs, warm, _ = plugin.on_start(st)
-    mpc = {b: SamplingMPC(plugin, MPPIConfig(**STEP_MPPI),
-                          ro.RolloutConfig(**STEP_ROLLOUT, qp_backend=b))
-           for b in BACKENDS}
+    mpc = {b: on_route(b, SamplingMPC(plugin, MPPIConfig(**STEP_MPPI),
+                                      ro.RolloutConfig(**STEP_ROLLOUT)),
+                       "update") for b in BACKENDS}
     H, N = STEP_MPPI["horizon"], STEP_MPPI["n_samples"]
     g = torch.Generator(device=dev).manual_seed(0)
     U, theta = mpc["kernel"].init_plan(), mpc["kernel"].init_theta()
@@ -1653,8 +1682,8 @@ def phase_step_recovery(torch, dev, card, hierarchy, level_qp, nsi, zoo):
             fail(f"step-recovery draw {d}: U_new / theta_new differ from the "
                  f"plain plan's by {u_err:.3g} / {th_err:.3g}")
 
-    roll = ro.make_rollout_fn(plugin, ro.RolloutConfig(
-        **GATE_ROLLOUT, qp_backend="kernel"), ro.default_cost)
+    roll = ro.make_rollout_fn(plugin, ro.RolloutConfig(**GATE_ROLLOUT),
+                              ro.default_cost)
     Hg = GATE_ROLLOUT["horizon"]
     gate_seq = torch.ones((N, Hg, len(FEET)), device=dev)
     gate_seq[:, :, 0] = torch.clamp(
@@ -1841,19 +1870,14 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
           f"{stats.mean_ms / (stats.mean_ms + sim_ms):.3f}")
 
     # the NS kernel against the plain NS on the loop's first ticks
-    def plain_inverse(B, iters=24, reg=0.0):
-        K = B + reg * torch.eye(B.shape[-1], device=B.device)
+    def plain_inverse(K, iters=24):
         return linalg.spd_inverse_ns(K, iters=iters - 2, refine=2)
 
-    kernel_inverse = dynamics.mass_matrix_inverse
-    dynamics.mass_matrix_inverse = plain_inverse
-    try:
+    with mock.patch.object(nsi, "spd_inverse", plain_inverse):
         zero(NS)
         _, tr_p = qppvm_loop(torch, plugin, SimRobot(model, dt=1e-3,
                                                      substeps=2),
                              QPPVM_COMPARE, tmp.name + "/plain", sinusoid)
-    finally:
-        dynamics.mass_matrix_inverse = kernel_inverse
     if counted(NS) != 0:
         fail(f"plain-NS QPPVM ticks made {counted(NS)} NS launches")
     taus = torch.tensor(tr["tau_desired"][:QPPVM_COMPARE], device=dev)
@@ -1864,8 +1888,8 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
           f"abs diff {ns_err:.3g} Nm (atol {TAU_ATOL}, rtol {TAU_RTOL})")
 
     # the level kernel's profile, chained from the same on_start
-    chain_p = {b: QPPVMPlugin(model, iters=60, solver_opts=dict(
-        rho_updates=0, backend=b)) for b in BACKENDS}
+    chain_p = {b: on_route(b, QPPVMPlugin(model, iters=60, solver_opts=dict(
+        rho_updates=0))) for b in BACKENDS}
     refs, warm0, start = chain_p["kernel"].on_start(st)
     states = [type(st)(q=torch.tensor(tr["q"][k], dtype=torch.float32,
                                       device=dev),
@@ -1936,9 +1960,9 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
              "qppvm_arm7_loop_b1": arm_ns})
 
 
-def walk_setup(torch, dev, zoo, backend, start=None):
+def walk_setup(torch, dev, zoo, b, start=None):
     """The walk's quadruped, plant, estimator and one-stride gait; the
-    plugin's level solver ``backend``; references and warm state from
+    plugin's level solver ``b`` of BACKENDS; references and warm state from
     ``start`` or the plugin's on_start."""
     from types import SimpleNamespace
 
@@ -1949,8 +1973,8 @@ def walk_setup(torch, dev, zoo, backend, start=None):
     from qppvm_tpu_torch.runtime.gait import GaitScript
 
     model = zoo.quadruped(device=dev)
-    plugin = ForceAccPlugin(model, **WALK_PLUGIN,
-                            solver_opts=dict(WALK_PROFILE, backend=backend))
+    plugin = on_route(b, ForceAccPlugin(model, **WALK_PLUGIN,
+                                        solver_opts=WALK_PROFILE))
     robot = ri.SimRobot(model, state=ri.standing_state(model, FEET),
                         dt=1e-3, substeps=WALK_SUBSTEPS, contact_links=FEET,
                         ground_z=0.0)
@@ -2174,8 +2198,9 @@ def phase_async(torch, dev, card, hierarchy, level_qp, nsi, zoo):
              f"failed ticks")
     if not (up > 0.95 and z > z0 - 0.08):
         fail(f"async pipeline: up {up:.4f}, base z {z:.4f} m")
+    # the ticks' default profile (rho_updates 1) runs qp.solve, counted
     if (launches, fallbacks) != (
-            2 * ASYNC_MPPI["horizon"] * planner.n_launch, 0):
+            2 * ASYNC_MPPI["horizon"] * planner.n_launch, 2 * ASYNC_TICKS):
         fail(f"async pipeline: {launches} level launches, {fallbacks} "
              f"fallbacks for {planner.n_launch} plans")
     if ns_launches != 2 * ASYNC_TICKS + planner.n_launch:
@@ -2232,8 +2257,10 @@ def phase_entry(torch, dev, card, hierarchy, level_qp, nsi, zoo):
                      f"against the standing {z_stand:.4f} m")
         if cfg.mpc.enabled:
             horizon = int(args[args.index("--horizon") + 1])
+            # on_start's two cold, polished solves of the humanoid's 2
+            # levels run qp.solve, counted
             if (counted(LEVEL), counted(FALLBACK), out["devices"]) != (
-                    2 * horizon, 0, 1) or counted(NS) != 1:
+                    2 * horizon, 2 * 2, 1) or counted(NS) != 1:
                 fail(f"run {cname}: {counted(LEVEL)} level launches, "
                      f"{counted(FALLBACK)} fallbacks, {counted(NS)} NS")
         elif counted(NS) < int(round(float(RUN_SECONDS) * 1e3)):
@@ -2339,10 +2366,10 @@ def plan_launches(cfg):
     return c.horizon * (c.iterations + 1) + 1
 
 
-def ddp_loop(torch, dev, zoo, backend, ticks, force=False, record=0):
+def ddp_loop(torch, dev, zoo, b, ticks, force=False, record=0):
     """tests/test_ddp_mpc.py's squat on the quadruped for ``ticks`` ticks,
-    its levels through ``backend``; with ``force`` the plan's step-0 forces
-    in ForceReg as tests/test_force_plan_tracking.py wires them. Keeps
+    its levels through level solver ``b``; with ``force`` the plan's step-0
+    forces in ForceReg as tests/test_force_plan_tracking.py wires them. Keeps
     every quantity on the device; sets the launch counts to 0 after the
     set-up (on_start's polished solves are outside the kernel's profile);
     returns the run's numbers."""
@@ -2354,9 +2381,9 @@ def ddp_loop(torch, dev, zoo, backend, ticks, force=False, record=0):
     from qppvm_tpu_torch.runtime import robot_interface as ri
 
     model = zoo.quadruped(device=dev)
-    plugin = ForceAccPlugin(model, contact_links=FEET, waist_link="pelvis",
-                            iters=40,
-                            solver_opts=dict(DDP_PROFILE, backend=backend))
+    plugin = on_route(b, ForceAccPlugin(model, contact_links=FEET,
+                                        waist_link="pelvis", iters=40,
+                                        solver_opts=DDP_PROFILE))
     mpc, st, p_ref = ddp_planner(torch, model, FEET, DDP_TEST)
     robot = ri.SimRobot(model, state=st, dt=1e-3, substeps=4,
                         contact_links=FEET)
@@ -2856,7 +2883,7 @@ def phase_stream(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     def tick(carry, _):
         st, anchors, w = carry
         tau, w, aux = plugin._step_impl(st, refs, w)
-        st, anchors = robot._step(st, anchors, tau, st.q, zk, zk)
+        st, anchors = robot.step(st, anchors, tau, st.q, zk, zk)
         return (st, anchors, w), {
             "tau_qp": tau[0], "prim_res": aux.prim_res[0],
             "fz": aux.wrenches[0, :, 2], "base_z": st.base_pos[0, 2]}
@@ -2921,7 +2948,8 @@ def phase_flops(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         fail(f"FLOP count of the tick: {counts}")
     tick_ms = statistics.median(tick_times_ms(
         torch, plugins["kernel"], states, refs_b, warm_b))
-    plans = {b: humanoid_plan(b, device=dev) for b in BACKENDS}
+    plans = {b: on_route(b, humanoid_plan(device=dev), "plan")
+             for b in BACKENDS}
     g = torch.Generator(device=dev).manual_seed(0)
     U0 = plans["kernel"].mpc.init_plan()
     pcounts = {b: bench_util.matmul_flops(p.plan, g, U0)
@@ -3146,9 +3174,9 @@ def phase_main_path(torch, dev, card, hierarchy, level_qp, zoo):
           f"(|tau| up to {float(taus_ref[-1].abs().max()):.3g} Nm; "
           f"atol {TAU_ATOL}, rtol {TAU_RTOL})")
 
-    for backend in BACKENDS:
-        times = tick_times_ms(torch, plugins[backend], states, refs_b, warm_b)
-        print(f"[{card}] batched tick B={B} ({backend} level solver): median "
+    for b in BACKENDS:
+        times = tick_times_ms(torch, plugins[b], states, refs_b, warm_b)
+        print(f"[{card}] batched tick B={B} ({b} level solver): median "
               f"{statistics.median(times):.3f} ms over {REPS} reps "
               f"(min {min(times):.3f}, max {max(times):.3f})")
     return {"launches": launches}

@@ -36,9 +36,8 @@ class RobotConfig:
 @dataclasses.dataclass
 class SolverConfig:
     """Hierarchical-QP options. ``opts`` pass through to the plugin's
-    solver_opts: any hierarchy.solve keyword, e.g. {"rho_updates": 0,
-    "backend": "kernel"} (the level kernel's profile) or {"method":
-    "pdip"}."""
+    solver_opts: any hierarchy.solve keyword, e.g. {"rho_updates": 0}
+    (the level kernel's profile) or {"method": "pdip"}."""
 
     eps: float = 1.0
     iters: int = 100
@@ -138,6 +137,13 @@ class ScenarioConfig:
             unknown = set(got) - fields
             if unknown:
                 raise ValueError(f"unknown {key} config keys: {sorted(unknown)}")
+            if cls is SolverConfig:
+                # a scenario file may still name the level kernel, which
+                # takes every level it holds unasked: read, then dropped
+                opts = got["opts"] = dict(got.get("opts") or {})
+                if opts.pop("backend", "kernel") != "kernel":
+                    raise ValueError("solver.opts.backend: only 'kernel' is "
+                                     "read (and dropped)")
             return cls(**got)
 
         cfg = ScenarioConfig(
@@ -233,8 +239,7 @@ def build_mpc(cfg: ScenarioConfig, plugin, mesh=None):
                       mu_scale_range=m.mu_scale_range,
                       step_recovery=m.step_recovery,
                       lambda_=m.lambda_)
-    rcfg = RolloutConfig(horizon=m.horizon, qp_iters=m.qp_iters,
-                         qp_backend="kernel")
+    rcfg = RolloutConfig(horizon=m.horizon, qp_iters=m.qp_iters)
     return SamplingMPC(plugin, mppi, rcfg, mesh=mesh)
 
 

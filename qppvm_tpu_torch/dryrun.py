@@ -65,7 +65,7 @@ def plan_step(n_samples: int, device, mesh=None, seed: int = 0):
         refs, warm = meshlib.replicate((refs, warm), mesh)
     mppi = MPPIConfig(n_samples=n_samples, horizon=HORIZON, push_std=20.0,
                       mass_scale_std=0.05, mu_scale_range=0.2)
-    rcfg = RolloutConfig(horizon=HORIZON, qp_iters=10, qp_backend="kernel")
+    rcfg = RolloutConfig(horizon=HORIZON, qp_iters=10)
     mpc = SamplingMPC(plugin, mppi, rcfg, mesh=mesh)
     U = mpc.init_plan()
     gen = torch.Generator(device=device).manual_seed(seed)

@@ -14,7 +14,7 @@ import torch
 from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import kinematics, model_sweep, spatial
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
-from qppvm_tpu_torch.opt import linalg, ns_inverse
+from qppvm_tpu_torch.opt import ns_inverse
 
 
 def _base_gravity_acc(model: RobotModel, state: RobotState):
@@ -122,30 +122,6 @@ def mass_matrix(model: RobotModel, state: RobotState,
     return M + torch.diag_embed(arm)
 
 
-def ns_kernel_takes(dtype, n: int, max_n: int) -> bool:
-    """Whether the NS kernel inverts a matrix of ``dtype`` and size n, given
-    its largest size ``max_n``."""
-    return dtype == torch.float32 and n <= max_n
-
-
-def mass_matrix_inverse(B, iters: int = 24, reg: float = 0.0):
-    """``iters`` Newton-Schulz iterations of ``linalg.spd_inverse_ns`` (its
-    iters - 2 plus 2 refinement steps) on SPD matrices B (B, n, n) (mass
-    matrices; also the DDP planner's Q_uu and SRBD inertia), plus
-    ``reg`` I where ``reg`` is not 0. A CUDA tensor the NS kernel takes goes
-    to it (``ns_inverse.ns_inverse(K, iters)``, one launch); any other CUDA
-    tensor runs the plain version and counts one ``model.plain_inverse``
-    (``telemetry``). A CPU tensor goes through ``ns_inverse.ns_inverse``,
-    which runs the same plain version."""
-    K = B if reg == 0.0 else B + reg * torch.eye(B.shape[-1], dtype=B.dtype,
-                                                  device=B.device)
-    if K.device.type == "cuda" and not ns_kernel_takes(
-            K.dtype, K.shape[-1], ns_inverse.library().ns_inverse_max_n()):
-        telemetry.count("model.plain_inverse")
-        return linalg.spd_inverse_ns(K, iters=iters - 2, refine=2)
-    return ns_inverse.ns_inverse(K, iters=iters)
-
-
 def forward_dynamics(model: RobotModel, state: RobotState, tau,
                      ext_wrenches=None,
                      kin: Optional[kinematics.KinData] = None,
@@ -154,7 +130,7 @@ def forward_dynamics(model: RobotModel, state: RobotState, tau,
     actuated torques, ``ext_wrenches`` as for ``rnea``.
 
     ``method="ns"``: the Newton-Schulz inverse of B + 1e-9 I
-    (``mass_matrix_inverse``) applied with two
+    (``ns_inverse.spd_inverse``) applied with two
     refinement steps against that matrix; ``"chol"``: an exact
     Cholesky solve. ``B``: the mass matrix at ``state`` when the caller has
     it; ``binv``: an approximate inverse of it (a warm inverse carried along
@@ -176,7 +152,7 @@ def forward_dynamics(model: RobotModel, state: RobotState, tau,
         return torch.cholesky_solve(rhs[..., None],
                                     torch.linalg.cholesky(Breg))[..., 0]
     if binv is None:
-        binv = mass_matrix_inverse(Breg)
+        binv = ns_inverse.spd_inverse(Breg)
     mv = lambda M, v: (M @ v[..., None])[..., 0]  # noqa: E731
     x = mv(binv, rhs)
     for _ in range(2):   # refinement against the true B
@@ -310,7 +286,7 @@ def compute_model_data(model: RobotModel, state: RobotState,
                        plain_sweeps: bool = False) -> ModelData:
     """The tick's model data; with ``need_binv`` also the mass matrix's
     inverse, 18 + 2 Newton-Schulz iterations without regularization
-    (``mass_matrix_inverse(B, 20)``: the NS kernel for float32 on the
+    (``ns_inverse.spd_inverse(B, 20)``: the NS kernel for float32 on the
     card).
 
     The recursive sweeps (fk, the nonlinear term, the bias accelerations)
@@ -356,7 +332,7 @@ def compute_model_data(model: RobotModel, state: RobotState,
         Binv = None
         if need_binv:
             with span("model_update.binv"):
-                Binv = mass_matrix_inverse(M, 20)
+                Binv = ns_inverse.spd_inverse(M, 20)
         return ModelData(kin=kin, B=M, h=h, J_all=J_all, vel_all=vel_all,
                          bias_all=bias_all, com_pos=com_pos,
                          total_mass=total_mass, base_vel=state.base_vel,

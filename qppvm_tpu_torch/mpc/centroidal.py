@@ -19,6 +19,7 @@ import torch
 
 from qppvm_tpu_torch import device as devices
 from qppvm_tpu_torch.model import dynamics
+from qppvm_tpu_torch.opt import ns_inverse
 
 NX = 12
 # Newton-Schulz iterations of the SRBD inertia's inverse (the reference's
@@ -76,11 +77,11 @@ def init_state(com_pos, com_vel=None, dtype=torch.float32,
 
 def inertia_inverse(params: CentroidalParams):
     """The SRBD inertia's inverse by INERTIA_NS_ITERS Newton-Schulz
-    iterations, through ``dynamics.mass_matrix_inverse``'s counted rule (the
+    iterations, through ``ns_inverse.spd_inverse``'s counted rule (the
     NS kernel for float32 on the card). It does not depend on (x, u):
     compute it once and pass it to ``dynamics_step``."""
     K = params.inertia[None].contiguous()
-    return dynamics.mass_matrix_inverse(K, INERTIA_NS_ITERS)[0]
+    return ns_inverse.spd_inverse(K, INERTIA_NS_ITERS)[0]
 
 
 def dynamics_step(params: CentroidalParams, x, u, Iinv):

@@ -2,7 +2,7 @@
 bench_mpc.py's set-up): ``zoo.humanoid()`` standing in rollout
 equilibrium, ``ForceAccPlugin(iters=20)`` with its default profile for
 on_start, MPPI with 30 N pushes, and rollouts at qp_iters 12 with 8 warm
-KKT Newton-Schulz iterations through the level solver ``qp_backend``.
+KKT Newton-Schulz iterations.
 """
 from __future__ import annotations
 
@@ -36,8 +36,7 @@ class HumanoidPlan:
         return self.mpc.update(self.state, self.refs, self.warm, U, scenario)
 
 
-def humanoid_plan(qp_backend: str = "kernel",
-                  device=devices.DEFAULT) -> HumanoidPlan:
+def humanoid_plan(device=devices.DEFAULT) -> HumanoidPlan:
     model = zoo.humanoid(device=device)
     plugin = ForceAccPlugin(model, contact_links=CONTACTS,
                             waist_link="pelvis", iters=20)
@@ -45,6 +44,5 @@ def humanoid_plan(qp_backend: str = "kernel",
     refs, warm, _ = plugin.on_start(st)
     mppi = MPPIConfig(n_samples=N_SAMPLES, horizon=HORIZON, push_std=30.0)
     rcfg = RolloutConfig(horizon=HORIZON, qp_iters=QP_ITERS,
-                         qp_warm_kinv_iters=WARM_KINV_ITERS,
-                         qp_backend=qp_backend)
+                         qp_warm_kinv_iters=WARM_KINV_ITERS)
     return HumanoidPlan(SamplingMPC(plugin, mppi, rcfg), st, refs, warm)

@@ -7,7 +7,7 @@ Generic over (dynamics, cost, final cost), each a function of one state
 - the derivatives along the whole trajectory at once (``torch.func.jacfwd``,
   ``grad`` and ``hessian`` under ``vmap`` over the H steps);
 - the backward pass, a Python loop over the horizon in reverse of small
-  products; Q_uu's inverse goes through ``dynamics.mass_matrix_inverse``'s
+  products; Q_uu's inverse goes through ``ns_inverse.spd_inverse``'s
   counted rule (the NS kernel for float32 on the card, one launch a step);
 - a parallel line search: every step size in ``alphas`` rolled out at once
   as a leading dimension, the cheapest kept;
@@ -24,7 +24,7 @@ from typing import Callable, Optional
 import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
-from qppvm_tpu_torch.model import dynamics
+from qppvm_tpu_torch.opt import ns_inverse
 
 # Newton-Schulz iterations of Q_uu's inverse (the reference's 20 + 2
 # refinement steps)
@@ -114,7 +114,7 @@ def make_solver(dyn: Callable, cost: Callable, final_cost: Callable,
             Quu = luu[t] + Bt.T @ Vxx @ Bt
             Qux = lux[t] + Bt.T @ Vxx @ At
             # matmul-only inverse; Quu + reg I is SPD by LM regularization
-            Quu_inv = dynamics.mass_matrix_inverse(
+            Quu_inv = ns_inverse.spd_inverse(
                 (Quu + reg * eye)[None].contiguous(), QUU_NS_ITERS)[0]
             k[t] = -(Quu_inv @ Qu)
             K[t] = -(Quu_inv @ Qux)

@@ -7,8 +7,7 @@ scans the horizon; the port carries the sample axis as the leading batch
 dimension of every tensor and runs the horizon as a Python loop over the
 same eight carried leaves (state, refs, warm, waist_p, binv, anchors, scen,
 theta). Each step solves every sample's cascade in one call per level, so
-with ``qp_backend="kernel"`` the CUDA level kernel sees all samples in one
-launch per level.
+the CUDA level kernel sees all samples in one launch per level.
 
 Footstep recovery: ``make_swing_primitive`` schedules one swing inside the
 horizon from a low-dimensional decision theta (one per sample), and
@@ -28,15 +27,12 @@ import torch
 from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import dynamics, kinematics
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
-from qppvm_tpu_torch.opt import hierarchy, linalg
+from qppvm_tpu_torch.opt import hierarchy, linalg, ns_inverse
 from qppvm_tpu_torch.runtime.robot_interface import (contact_offsets_for,
                                                      ground_forces,
                                                      init_anchors,
                                                      stop_torques)
 
-# the reference's level-solver names and the port's
-QP_BACKENDS = {"xla": "torch", "pallas": "kernel", "torch": "torch",
-               "kernel": "kernel"}
 THETA_KEYS = ("swing", "t0", "dxy")
 
 
@@ -75,9 +71,6 @@ class RolloutConfig:
     stop_kp: float = 200.0
     stop_kd: float = 5.0
     ground_z: float = 0.0
-    # level solver of each step's cascade: "torch" (qp.solve) or "kernel"
-    # (the level kernel; the reference's "xla" / "pallas" map onto these)
-    qp_backend: str = "torch"
 
 
 def standing_state(model: RobotModel, contact_links: Sequence[str],
@@ -268,9 +261,6 @@ def make_rollout_fn(plugin, cfg: RolloutConfig, cost_fn: Callable,
     ``health``: "prim_res_max" (K,) and "solver_failed" (K,) over the
     horizon. The rollout also carries ``one_step``, ``init_carry`` and
     ``solver_opts``."""
-    if cfg.qp_backend not in QP_BACKENDS:
-        raise ValueError(f"unknown qp_backend {cfg.qp_backend!r}; one of "
-                         f"{sorted(QP_BACKENDS)}")
     model = plugin.model
     contact_idx = tuple(model.link_index(c) for c in plugin.contact_links)
     contact_offs = contact_offsets_for(plugin.contact_links, contact_offsets)
@@ -287,8 +277,7 @@ def make_rollout_fn(plugin, cfg: RolloutConfig, cost_fn: Callable,
         warm_kinv_iters=cfg.qp_warm_kinv_iters,
         rho_adapt_tol=cfg.qp_rho_adapt_tol,
         rho_scale_min=cfg.qp_rho_scale_min, scale_iters=cfg.qp_scale_iters,
-        pinv_ns_iters=cfg.qp_pinv_ns_iters,
-        backend=QP_BACKENDS[cfg.qp_backend])
+        pinv_ns_iters=cfg.qp_pinv_ns_iters)
 
     def one_step(carry, inp):
         state, refs, warm, waist_p, binv, anchors, scen, theta = carry
@@ -377,8 +366,9 @@ def make_rollout_fn(plugin, cfg: RolloutConfig, cost_fn: Callable,
             theta = {k: torch.as_tensor(v, dtype=plugin.dtype,
                                         device=state0.q.device)
                      for k, v in theta.items()}
-        binv0 = dynamics.mass_matrix_inverse(
-            dynamics.mass_matrix(model, state0), reg=1e-9)
+        M0 = dynamics.mass_matrix(model, state0)
+        binv0 = ns_inverse.spd_inverse(M0 + 1e-9 * torch.eye(
+            model.nv, dtype=M0.dtype, device=M0.device))
         anchors0 = init_anchors(model, state0, contact_idx, contact_offs,
                                 plugin.dtype)
         return (state0, refs0, warm0, refs0["waist_task"]["p"], binv0,

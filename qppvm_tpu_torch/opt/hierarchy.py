@@ -8,13 +8,10 @@ the warm start is a per-level tuple of batched ``QPState``s.
 ``method`` picks the level algorithm: "admm" (warm-started first-order,
 ``opt/qp.py``; the real-time default) or "pdip" (the Mehrotra interior
 point of ``opt/pdip.py``, cold, at a fixed ``pdip_iters``: the accurate
-backstop for heavily saturated levels, where ADMM crawls). Under "admm",
-``backend`` picks the level solver: "torch" runs qp.solve; "kernel" sends
-each level in the level solver's profile to ``level_qp.solve_level`` (the
-CUDA kernel on the card, its plain version on the CPU). Under "kernel" a
-level outside the profile (a cold or polished solve, no warm state, or no
-inequality row) runs qp.solve. Each level solve counts one
-``cascade.level``, and each such fallback one ``cascade.fallback``
+backstop for heavily saturated levels, where ADMM crawls). Under "admm"
+``level_qp.solve`` routes each level: to the level kernel where it takes
+the level (its plain version on the CPU), else to qp.solve, counted as a
+``cascade.fallback``. Each level solve counts one ``cascade.level``
 (``telemetry``). The solve is the span ``cascade``, each level's solver
 call a span ``cascade.level`` in it.
 """
@@ -25,7 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from qppvm_tpu_torch import bench_util, telemetry
+from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.opt import level_qp, pdip, qp
 
 
@@ -62,8 +59,7 @@ def warm_start_init(stack: StackData) -> Tuple[qp.QPState, ...]:
     return tuple(states)
 
 
-def _solve_level(prob: qp.QPProblem, st: Optional[qp.QPState], opts: dict,
-                 backend: str):
+def _solve_level(prob: qp.QPProblem, st: Optional[qp.QPState], opts: dict):
     telemetry.count("cascade.level")
     if opts.pop("method") == "pdip":
         x, info = pdip.solve(prob, iters=opts["pdip_iters"])
@@ -74,28 +70,7 @@ def _solve_level(prob: qp.QPProblem, st: Optional[qp.QPState], opts: dict,
         z = torch.clamp((prob.A @ x[..., None])[..., 0], prob.l, prob.u)
         return x, dataclasses.replace(st, x=x, z=z), info
     opts.pop("pdip_iters")
-    if backend not in ("torch", "kernel"):
-        raise ValueError(f"unknown backend {backend!r}")
-    h, t = opts.get("n_eq_head", 0), opts.get("n_eq_tail", 0)
-    cfg = None
-    if st is not None and prob.A.shape[1] - h - t > 0:
-        cfg = level_qp.config_from_opts(opts, n_eq_head=h, n_eq_tail=t,
-                                        iters=opts["iters"])
-    if cfg is None:
-        if backend == "kernel":
-            telemetry.count("cascade.fallback")
-        return qp.solve(prob, st, **opts)
-    if backend == "torch":
-        # the level kernel's function: a FLOP count reads it at the
-        # kernel's declared cost, as it reads the kernel
-        with bench_util.declared(bench_util.level_qp_cost, cfg,
-                                 *prob.q.shape, prob.A.shape[1]):
-            return qp.solve(prob, st, **opts)
-    x, z, y, K, r, prim, dual, obj = level_qp.solve_level(
-        cfg, prob.P, prob.q, prob.A, prob.l, prob.u, st.x, st.z, st.y,
-        st.Kinv, st.rho_scale)
-    return (x, qp.QPState(x=x, z=z, y=y, Kinv=K, rho_scale=r),
-            qp.QPInfo(prim_res=prim, dual_res=dual, obj=obj))
+    return level_qp.solve(prob, st, **opts)
 
 
 def solve(stack: StackData, warm: Optional[Tuple[qp.QPState, ...]] = None, *,
@@ -108,7 +83,7 @@ def solve(stack: StackData, warm: Optional[Tuple[qp.QPState, ...]] = None, *,
           pinv_ns_iters: int = 7, reg_diag: Optional[torch.Tensor] = None,
           method: str = "admm", pdip_iters: int = 25,
           per_level_opts: Optional[Sequence[Optional[dict]]] = None,
-          eq_elim: bool = True, backend: str = "torch"):
+          eq_elim: bool = True):
     """Solve the cascade for the batch. Returns (x (B, n), warm_states,
     infos). The Tikhonov weight is ``eps * eps_abs_scale * (mean(diag(A^T
     A)) + 1)``, shaped per variable by ``reg_diag`` and centred on the warm
@@ -129,7 +104,7 @@ def solve(stack: StackData, warm: Optional[Tuple[qp.QPState, ...]] = None, *,
             rho_adapt_tol=rho_adapt_tol, rho_scale_min=rho_scale_min,
             cold_ns_iters=cold_ns_iters, scale_iters=scale_iters,
             pinv_ns_iters=pinv_ns_iters, method=method, pdip_iters=pdip_iters,
-            eq_elim=eq_elim, backend=backend)
+            eq_elim=eq_elim)
         locked_rows: List[torch.Tensor] = []
         locked_vals: List[torch.Tensor] = []
         new_states, infos = [], []
@@ -142,7 +117,6 @@ def solve(stack: StackData, warm: Optional[Tuple[qp.QPState, ...]] = None, *,
             lvl_eps_scale = opts.pop("eps_abs_scale")
             lvl_reg_diag = opts.pop("reg_diag", reg_diag)
             lvl_eq_elim = opts.pop("eq_elim")
-            lvl_backend = opts.pop("backend")
 
             At = lv.A.transpose(-1, -2)
             P = At @ lv.A
@@ -173,7 +147,7 @@ def solve(stack: StackData, warm: Optional[Tuple[qp.QPState, ...]] = None, *,
                 opts["n_eq_tail"] = sum(r.shape[1] for r in locked_rows)
             st = warm[k] if warm is not None else None
             with telemetry.span("cascade.level"):
-                x, st_new, info = _solve_level(prob, st, opts, lvl_backend)
+                x, st_new, info = _solve_level(prob, st, opts)
             new_states.append(st_new)
             infos.append(info)
             locked_rows.append(lv.A)

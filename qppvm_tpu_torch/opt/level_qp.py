@@ -4,19 +4,21 @@
 ``solve_level`` solves one cascade level for every item of a batch. On a
 CUDA tensor it launches ``csrc/level_qp.cu`` (one thread block per QP,
 working set in shared memory) or raises; on a CPU tensor it runs
-``solve_level_reference``, the same function in plain PyTorch. There is no
-fallback from the kernel to the plain version: the hierarchy decides which
-levels are in the kernel's profile and counts the ones that are not
-(``cascade.fallback`` in ``telemetry``).
+``solve_level_reference``, the same function in plain PyTorch.
 
-The kernel's profile is the deployed real-time one of qp.solve:
-rho_updates = 0, no polish, Newton-Schulz inverses, warm-started KKT
-inverse, at least one inequality row.
+``solve`` is the cascade's level solver and the one place that routes a
+level: to ``solve_level`` when the kernel's profile holds it (the deployed
+real-time one of qp.solve: rho_updates = 0, no polish, Newton-Schulz
+inverses, a warm state with its KKT inverse, at least one inequality row)
+and, on the card, its float32 working set fits a block's shared memory;
+every other level runs qp.solve and counts one ``cascade.fallback``
+(``telemetry``).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -133,6 +135,11 @@ def _check_profile(cfg: LevelQPConfig, n: int, m: int) -> None:
         raise ValueError(f"{ne} equality rows exceed the {n} variables")
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(n: int, m: int, h: int, t: int) -> int:
+    return 4 * library().level_qp_smem_floats(n, m, h, t)
+
+
 def _launch(cfg: LevelQPConfig, P, q, A, l, u, wx, wz, wy, wK, wr):
     B, n, _ = P.shape
     m = A.shape[1]
@@ -150,7 +157,7 @@ def _launch(cfg: LevelQPConfig, P, q, A, l, u, wx, wz, wy, wK, wr):
             raise ValueError(f"{name} must be contiguous")
     lib = library()
     h, t_ = cfg.n_eq_head, cfg.n_eq_tail
-    smem = 4 * lib.level_qp_smem_floats(n, m, h, t_)
+    smem = _smem_bytes(n, m, h, t_)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"n={n}, m={m} needs {smem} bytes of shared memory "
                          f"per block, more than the {MAX_SMEM_BYTES} a block "
@@ -188,3 +195,27 @@ def solve_level(cfg: LevelQPConfig, P, q, A, l, u, wx, wz, wy, wK, wr):
             return solve_level_reference(cfg, P, q, A, l, u, wx, wz, wy, wK,
                                          wr)
     raise ValueError(f"no level solver for device {P.device}")
+
+
+def solve(prob: qp.QPProblem, st: Optional[qp.QPState], **opts):
+    """One cascade level (qp.solve's arguments and outputs): through
+    ``solve_level`` where the kernel takes the level, else qp.solve,
+    counted as one ``cascade.fallback``."""
+    h, t = opts.get("n_eq_head", 0), opts.get("n_eq_tail", 0)
+    m, n = prob.A.shape[1:]
+    cfg = None
+    if st is not None and m - h - t > 0:
+        cfg = config_from_opts(opts, n_eq_head=h, n_eq_tail=t,
+                               iters=opts["iters"])
+    if cfg is not None and prob.P.device.type == "cuda" and (
+            prob.P.dtype != torch.float32
+            or _smem_bytes(n, m, h, t) > MAX_SMEM_BYTES):
+        cfg = None
+    if cfg is None:
+        telemetry.count("cascade.fallback")
+        return qp.solve(prob, st, **opts)
+    x, z, y, K, r, prim, dual, obj = solve_level(
+        cfg, prob.P, prob.q, prob.A, prob.l, prob.u, st.x, st.z, st.y,
+        st.Kinv, st.rho_scale)
+    return (x, qp.QPState(x=x, z=z, y=y, Kinv=K, rho_scale=r),
+            qp.QPInfo(prim_res=prim, dual_res=dual, obj=obj))

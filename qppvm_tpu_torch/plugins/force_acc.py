@@ -95,7 +95,7 @@ class ForceAccPlugin:
         - ``force_share_mode``: ForceReg's "gate" or "static" share.
 
         ``solver_opts`` override the RT-loop solver keywords, e.g.
-        ``backend="kernel"``."""
+        ``rho_updates=0`` (the level kernel's profile)."""
         if not model.floating:
             raise ValueError("ForceAcc needs a floating-base model")
         self.model = model
@@ -249,14 +249,13 @@ class ForceAccPlugin:
             x_share = x_share + e @ wr.M
         warm0 = tuple(dataclasses.replace(s, x=x_share)
                       for s in hierarchy.warm_start_init(stack_data))
-        backend = self.solver_opts.get("backend", "torch")
         _, warm, _ = hierarchy.solve(stack_data, warm0, eps=self.eps,
                                      eps_abs_scale=1e-8, iters=self.iters,
-                                     refine=2, backend=backend)
+                                     refine=2)
         _, warm, _ = hierarchy.solve(stack_data, warm, eps=self.eps,
                                      eps_abs_scale=self.eps_abs_scale,
                                      reg_diag=self.reg_diag, iters=self.iters,
-                                     refine=2, backend=backend)
+                                     refine=2)
         return refs, warm, refs["waist_task"]["p"]
 
     def squat_refs(self, refs, initial_waist, depth: float = 0.1):

@@ -224,7 +224,9 @@ class SimRobot:
         # one stiction anchor per contact point (static friction)
         self._anchors = init_anchors(model, self.state, self._contact_idx,
                                      self._contact_offsets, dtype)
-        self._step = partial(_sim_step, model, dt / substeps,
+        # one physics substep: step(state, anchors, tau_ref, q_ref, k, d)
+        # -> (state, anchors)
+        self.step = partial(_sim_step, model, dt / substeps,
                             self._contact_idx, self._contact_offsets,
                             ground_z, contact_kp, contact_kd, mu, contact_kt)
 
@@ -265,7 +267,7 @@ class SimRobot:
         with telemetry.span("plant"):
             for _ in range(self.substeps):
                 with telemetry.span("plant.substep"):
-                    self.state, self._anchors = self._step(
+                    self.state, self._anchors = self.step(
                         self.state, self._anchors, self._tau_ref,
                         self._q_ref, self.k, self.d)
             self._publish_fb()

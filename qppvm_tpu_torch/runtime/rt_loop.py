@@ -13,7 +13,6 @@ health gate (``check_health``) reads the result back after timing.
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import torch
 
@@ -53,12 +52,7 @@ class ClosedLoop:
         self.robot = robot
         self.refs = refs
         self.warm = warm
-        model = plugin.model
-        self.sim = partial(ri._sim_step, model, robot.dt / robot.substeps,
-                           robot._contact_idx, robot._contact_offsets,
-                           robot.ground_z, robot.contact_kp,
-                           robot.contact_kd, robot.mu, robot.contact_kt)
-        self.zero_kd = torch.zeros(model.nj, dtype=plugin.dtype,
+        self.zero_kd = torch.zeros(plugin.model.nj, dtype=plugin.dtype,
                                    device=plugin.device)
 
     def run(self, ticks: int, record: int = 0) -> LoopResult:
@@ -72,8 +66,8 @@ class ClosedLoop:
         for k in range(ticks):
             tau, w, aux = self.plugin._step_impl(st, self.refs, w)
             for _ in range(self.robot.substeps):
-                st, anchors = self.sim(st, anchors, tau, st.q, self.zero_kd,
-                                       self.zero_kd)
+                st, anchors = self.robot.step(st, anchors, tau, st.q,
+                                              self.zero_kd, self.zero_kd)
             n_fail = n_fail + aux.solver_failed.sum()
             prim = torch.maximum(prim, aux.prim_res.max())
             if k < record:
@@ -86,8 +80,8 @@ class ClosedLoop:
         tau0 = torch.zeros_like(st.q)
         for _ in range(ticks):
             for _ in range(self.robot.substeps):
-                st, anchors = self.sim(st, anchors, tau0, st.q, self.zero_kd,
-                                       self.zero_kd)
+                st, anchors = self.robot.step(st, anchors, tau0, st.q,
+                                              self.zero_kd, self.zero_kd)
         return st, anchors
 
     def check_health(self, result: LoopResult) -> dict:
@@ -108,16 +102,14 @@ class ClosedLoop:
                 "base_drift_m": float((z1 - z0).max())}
 
 
-def humanoid_loop(backend: str = "torch",
-                  device=devices.DEFAULT) -> ClosedLoop:
+def humanoid_loop(device=devices.DEFAULT) -> ClosedLoop:
     """The humanoid standing on a 4-point foot patch per sole under the
-    RT-profile ForceAcc tick, ``backend`` "torch" (plain level solves) or
-    "kernel" (the CUDA level kernel on the card), warm state from the
-    plugin's on_start."""
+    RT-profile ForceAcc tick (its levels in the level kernel's profile),
+    warm state from the plugin's on_start."""
     model = zoo.humanoid(device=device)
     plugin = ForceAccPlugin(model, contact_links=CONTACTS,
                             waist_link="pelvis", iters=12,
-                            solver_opts=dict(RT_PROFILE, backend=backend))
+                            solver_opts=dict(RT_PROFILE))
     st0 = ri.standing_state(model, CONTACTS)
     robot = ri.SimRobot(model, state=st0, dt=1e-3, substeps=SUBSTEPS,
                         contact_links=CONTACTS, ground_z=0.0,

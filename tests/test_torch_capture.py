@@ -12,8 +12,8 @@ enables x64, so the JAX side is pinned). Both start from the port's
 across), so the rollouts are held alone and no JAX on_start is compiled.
 The JAX side compiles two programs, the rollout and the MPPI step, once,
 side by side on two threads; everything else runs it eagerly or in small
-jitted programs. The reference runs its "xla" level solver; the port runs
-"kernel", which on CPU tensors is the level kernel's plain version.
+jitted programs. The reference runs its "xla" level solver; the port's
+levels run the level kernel's plain version on CPU tensors.
 
 Tolerances:
 - costs, plans U and decisions theta: ``_close`` of
@@ -47,6 +47,7 @@ from qppvm_tpu.runtime import trajectory as jtraj
 from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import convert, kinematics, zoo
 from qppvm_tpu_torch.mpc import rollout, sampling
+from qppvm_tpu_torch.opt import level_qp
 from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
 from qppvm_tpu_torch.runtime import contact_switch, trajectory
 from qppvm_tpu_torch.runtime.robot_interface import standing_state
@@ -134,7 +135,7 @@ def quad():
                               for f in convert.QPSTATE_FIELDS})
                   for lv in warm)
 
-    jcfg = jrollout.RolloutConfig(**RCFG, qp_backend="xla")
+    jcfg = jrollout.RolloutConfig(**RCFG)
     jswing, _ = jrollout.make_swing_primitive(jp, span_s=H * RCFG["dt"])
     jroll = jrollout.make_rollout_fn(
         jp, jcfg, jrollout.default_cost, swing=jswing,
@@ -168,8 +169,7 @@ def quad():
         return jnp.asarray(by_shape[tuple(shape)].pop(0))
 
     jmpc = jsampling.SamplingMPC(jp, jsampling.MPPIConfig(**MPPI),
-                                 jrollout.RolloutConfig(**MCFG,
-                                                        qp_backend="xla"))
+                                 jrollout.RolloutConfig(**MCFG))
     mpc_args = (jax.random.PRNGKey(0), jst, jrefs, jwarm, jnp.asarray(U_nom),
                 _f32(theta_nom))
     with pytest.MonkeyPatch.context() as mp:
@@ -391,7 +391,7 @@ def test_rollout_with_gates_swing_and_terminal_cost_matches_reference(quad):
     """K 2, H 3: switchable cones with the height gate, a gate_seq that
     ramps foot_fl off in sample 0, two different swing decisions, the
     capture terminal cost; every level in the level kernel's profile."""
-    tcfg = rollout.RolloutConfig(**RCFG, qp_backend="kernel")
+    tcfg = rollout.RolloutConfig(**RCFG)
     swing, _ = rollout.make_swing_primitive(quad["tp"], span_s=H * tcfg.dt)
     roll = rollout.make_rollout_fn(
         quad["tp"], tcfg, rollout.default_cost, swing=swing,
@@ -411,9 +411,14 @@ def test_rollout_with_gates_swing_and_terminal_cost_matches_reference(quad):
            rtol=2e-2, floor=1e-5)
     np.testing.assert_array_equal(health["solver_failed"].numpy(),
                                   health_ref["solver_failed"])
-    with pytest.raises(ValueError, match="qp_backend"):
-        rollout.make_rollout_fn(quad["tp"], rollout.RolloutConfig(
-            qp_backend="cuda"), rollout.default_cost)
+    # the routing rule: the rollout's levels are in the level kernel's
+    # profile, and leave it with the options that leave it
+    off = rollout.make_rollout_fn(quad["tp"], rollout.RolloutConfig(
+        **RCFG, qp_rho_updates=1), rollout.default_cost)
+    for r, takes in ((roll, True), (off, False)):
+        cfg = level_qp.config_from_opts(r.solver_opts, n_eq_head=0,
+                                        n_eq_tail=0, iters=12)
+        assert (cfg is not None) is takes
 
 
 # ---- mpc/sampling.py: the step-recovery channel -----------------------------------
@@ -423,7 +428,7 @@ def test_mppi_step_recovery_update_matches_reference(quad):
     step was fed (its normal draws replaced by the same numpy ones)."""
     m = sampling.MPPIConfig(**MPPI)
     tmpc = sampling.SamplingMPC(quad["tp"], m, rollout.RolloutConfig(
-        **MCFG, qp_backend="kernel"))
+        **MCFG))
     unit, t = quad["unit"], lambda a: torch.tensor(a)  # noqa: E731
     U = t(quad["U_nom"])[None] + m.noise_std * t(unit["U"])
     theta = {k: t(v)[None] + (m.dxy_noise_std if k == "dxy"

@@ -186,32 +186,64 @@ def test_kernel_matches_plain_version_at_the_qppvm_shapes(device, n, m, h, t,
 
 def test_qppvm_tick_kernel_matches_plain(device):
     """One dual-arm QPPVM tick in the level kernel's profile (rho_updates
-    0, backend "kernel"): 2 level launches, no fallback, 1 NS launch (the
-    mass matrix's inverse), tau within chip_smoke.py's chain bars of the
-    same tick through the plain level solver and the plain NS inverse."""
-    from qppvm_tpu_torch.model import dynamics, zoo
+    0): 2 level launches, no fallback, 1 NS launch (the mass matrix's
+    inverse), tau within chip_smoke.py's chain bars of the same tick
+    through the plain level solver and the plain NS inverse."""
+    from qppvm_tpu_torch.model import zoo
     from qppvm_tpu_torch.plugins.qppvm import QPPVMPlugin
 
     model = zoo.dual_arm(device=device)
-    plugins = [QPPVMPlugin(model, iters=60, solver_opts=dict(
-        rho_updates=0, backend=b)) for b in ("kernel", "torch")]
+    plugin = QPPVMPlugin(model, iters=60, solver_opts=dict(rho_updates=0))
     st = model.home_state()
-    refs, warm, start = plugins[0].on_start(st)
-    refs = dict(refs, LEFT_ARM=plugins[0].make_refs(start, 0.5))
+    refs, warm, start = plugin.on_start(st)
+    refs = dict(refs, LEFT_ARM=plugin.make_refs(start, 0.5))
     telemetry.reset("level_qp.launch", "ns_inverse.launch", "cascade.fallback")
-    tau, _, aux = plugins[0].control_loop(st, refs, warm)
+    tau, _, aux = plugin.control_loop(st, refs, warm)
     torch.cuda.synchronize()
     counted = telemetry.counts()
     assert (counted["level_qp.launch"], counted["cascade.fallback"]) == (2, 0)
     assert telemetry.counts()["ns_inverse.launch"] == 1
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(dynamics, "mass_matrix_inverse",
-                   lambda B, iters=24, reg=0.0: ns_inverse.ns_inverse_reference(
-                       B, iters))
-        tau_ref, _, aux_ref = plugins[1].control_loop(st, refs, warm)
+    with pytest.MonkeyPatch.context() as mp:   # both kernels' plain versions
+        _plain_levels(mp)
+        mp.setattr(ns_inverse, "spd_inverse",
+                   lambda K, iters=24: ns_inverse.ns_inverse_reference(
+                       K, iters))
+        tau_ref, _, aux_ref = plugin.control_loop(st, refs, warm)
     assert not aux.solver_failed.any() and not aux_ref.solver_failed.any()
     assert bool(((tau - tau_ref).abs() <= 5e-3 + 1e-3 * tau_ref.abs()).all())
     assert float((tau - aux.h).abs().max()) > 1e-2   # the task acts
+
+
+def _plain_levels(mp):
+    """Every level the kernel takes runs its plain version instead."""
+    mp.setattr(level_qp, "_launch", level_qp.solve_level_reference)
+
+
+@pytest.mark.parametrize("case", ["float64", "too_large"])
+def test_level_outside_the_kernel_runs_qp_solve_counted(device, case):
+    """A level in the kernel's profile that the kernel cannot hold on the
+    card (float64; a working set beyond a block's shared memory) runs
+    qp.solve and counts one ``cascade.fallback``, no launch."""
+    from qppvm_tpu_torch.opt import qp
+
+    n, m, dtype = (44, 12, torch.float64) if case == "float64" else (
+        120, 4, torch.float32)
+    opts = dict(iters=12, rho_updates=0, polish_rounds=0,
+                assume_warm_kinv=True, warm_kinv_iters=4, scale_iters=2,
+                pinv_ns_iters=5)
+    assert level_qp.config_from_opts(opts, n_eq_head=0, n_eq_tail=0,
+                                     iters=12) is not None
+    prob = qp.QPProblem(*(a.to(dtype) for a in parity.random_problems(
+        3, n, m, 0, 0, device, seed=1)))
+    st = qp.QPState(*(a.to(dtype) for a in parity.zero_state(3, n, m,
+                                                             device)))
+    telemetry.reset("level_qp.launch", "cascade.fallback")
+    x, _, info = level_qp.solve(prob, st, **opts)
+    torch.cuda.synchronize()
+    counted = telemetry.counts()
+    assert (counted["level_qp.launch"], counted["cascade.fallback"]) == (0, 1)
+    assert x.dtype == dtype
+    assert torch.equal(x, qp.solve(prob, st, **opts)[0])
 
 
 def _ns_batch(device, B, n, seed):
@@ -301,7 +333,7 @@ def test_plant_mass_matrix_inverse_routing(device, dtype):
     NS kernel (one launch a substep), float64 ones to the plain NS, counted
     in ``model.plain_inverse`` (``telemetry``); both match the plain plant
     step."""
-    from qppvm_tpu_torch.model import dynamics, zoo
+    from qppvm_tpu_torch.model import zoo
     from qppvm_tpu_torch.runtime import robot_interface as ri
 
     feet = ("foot_fl", "foot_fr", "foot_hr", "foot_hl")
@@ -317,8 +349,8 @@ def test_plant_mass_matrix_inverse_routing(device, dtype):
     assert telemetry.counts()["ns_inverse.launch"] == (4 if kernel else 0)
     assert telemetry.counts()["model.plain_inverse"] == (0 if kernel else 4)
     with pytest.MonkeyPatch.context() as mp:   # the plain plant
-        mp.setattr(dynamics, "mass_matrix_inverse",
-                   lambda K: ns_inverse.ns_inverse_reference(K, 24))
+        mp.setattr(ns_inverse, "spd_inverse",
+                   lambda K, iters=24: ns_inverse.ns_inverse_reference(K, 24))
         robots[1].move()
     for a, r in zip((robots[0].state.q, robots[0].state.base_pos),
                     (robots[1].state.q, robots[1].state.base_pos)):
@@ -339,11 +371,10 @@ def test_centaur_tick_kernel_matches_plain(device):
     profile = dict(rho_updates=0, warm_kinv_iters=4, cold_ns_iters=10,
                    scale_iters=2, pinv_ns_iters=5)
     model = zoo.centaur(device=device)
-    plugins = [ForceAccPlugin(model, iters=12, use_friction_cones=True,
-                              solver_opts=dict(profile, backend=b))
-               for b in ("kernel", "torch")]
-    st = standing_state(model, plugins[0].contact_links)
-    refs, warm, _ = plugins[0].on_start(st)
+    plugin = ForceAccPlugin(model, iters=12, use_friction_cones=True,
+                            solver_opts=profile)
+    st = standing_state(model, plugin.contact_links)
+    refs, warm, _ = plugin.on_start(st)
     ex = lambda a: a.expand(Bt, *a.shape[1:]).contiguous()  # noqa: E731
     refs = {k: {kk: ex(v) for kk, v in r.items()} for k, r in refs.items()}
     warm = tuple(qp.QPState(**{f: ex(getattr(w, f)) for f in
@@ -356,11 +387,13 @@ def test_centaur_tick_kernel_matches_plain(device):
            for f in ("qd", "base_rot", "base_pos", "base_vel")})
     telemetry.reset("level_qp.launch")
     telemetry.reset("cascade.fallback")
-    tau, _, aux = plugins[0]._step_impl(states, refs, warm)
+    tau, _, aux = plugin._step_impl(states, refs, warm)
     torch.cuda.synchronize()
     counted = telemetry.counts()
     assert (counted["level_qp.launch"], counted["cascade.fallback"]) == (2, 0)
-    tau_ref, _, aux_ref = plugins[1]._step_impl(states, refs, warm)
+    with pytest.MonkeyPatch.context() as mp:
+        _plain_levels(mp)
+        tau_ref, _, aux_ref = plugin._step_impl(states, refs, warm)
     assert not aux.solver_failed.any() and not aux_ref.solver_failed.any()
     assert bool(((tau - tau_ref).abs() <= 5e-3 + 1e-3 * tau_ref.abs()).all())
     f = aux.wrenches
@@ -400,21 +433,23 @@ def test_swing_gate_rollout_kernel_matches_plain(device):
             "gate_seq": gate_seq}
     U = 0.2 * torch.randn(K, H, 3, generator=g, device=device)
     out = []
-    for backend in ("kernel", "torch"):
-        cfg = rollout.RolloutConfig(horizon=H, qp_iters=20, dt=0.04,
-                                    sim_substeps=2, mu=1.3,
-                                    qp_backend=backend)
-        swing, _ = rollout.make_swing_primitive(plugin, span_s=H * cfg.dt)
-        roll = rollout.make_rollout_fn(plugin, cfg, rollout.default_cost,
-                                       swing=swing)
+    cfg = rollout.RolloutConfig(horizon=H, qp_iters=20, dt=0.04,
+                                sim_substeps=2, mu=1.3)
+    swing, _ = rollout.make_swing_primitive(plugin, span_s=H * cfg.dt)
+    roll = rollout.make_rollout_fn(plugin, cfg, rollout.default_cost,
+                                   swing=swing)
+    for route in ("kernel", "plain"):
         telemetry.reset("level_qp.launch")
         telemetry.reset("cascade.fallback")
-        out.append(roll(*expand_batch(st, refs, warm, K), U, scen, theta))
+        with pytest.MonkeyPatch.context() as mp:
+            if route == "plain":
+                _plain_levels(mp)
+            out.append(roll(*expand_batch(st, refs, warm, K), U, scen,
+                            theta))
         torch.cuda.synchronize()
-        if backend == "kernel":
-            counted = telemetry.counts()
-            assert (counted["level_qp.launch"],
-                    counted["cascade.fallback"]) == (2 * H, 0)
+        counted = telemetry.counts()
+        assert (counted["level_qp.launch"], counted["cascade.fallback"]) == (
+            2 * H if route == "kernel" else 0, 0)
     (cost, health), (cost_ref, health_ref) = out
     assert bool(torch.isfinite(cost).all())
     assert torch.equal(health["solver_failed"], health_ref["solver_failed"])
@@ -475,8 +510,7 @@ def test_async_plan_on_side_stream_matches_sync_plan(device):
     refs, warm, _ = plugin.on_start(st)
     mpc = SamplingMPC(plugin, MPPIConfig(n_samples=64, horizon=4,
                                          noise_std=0.2, push_std=20.0),
-                      RolloutConfig(horizon=4, qp_iters=15, dt=0.02,
-                                    qp_backend="kernel"))
+                      RolloutConfig(horizon=4, qp_iters=15, dt=0.02))
     planner = AsyncPlanner(mpc, replan_ticks=20, ticks_per_step=20,
                            generator=torch.Generator(
                                device=device).manual_seed(7))
@@ -531,8 +565,6 @@ def test_ilqr_quu_routing(device, dtype):
     """The backward pass inverts Q_uu once a step: float32 through the NS
     kernel (30 steps x 4 passes = 120 launches), float64 through the plain
     NS, counted; both solve the LQR problem as the CPU does in float64."""
-    from qppvm_tpu_torch.model import dynamics
-
     telemetry.reset("ns_inverse.launch")
     telemetry.reset("model.plain_inverse")
     res = _lqr(device, dtype)
@@ -556,7 +588,7 @@ def test_ddp_plan_card_matches_cpu(device, robot, feet):
     iterations) in float32: 76 NS launches and no plain inverse on the
     card; the plan held to the CPU's (plain inverses) at chip_smoke.py's
     phase 15 bars."""
-    from qppvm_tpu_torch.model import dynamics, kinematics, zoo
+    from qppvm_tpu_torch.model import kinematics, zoo
     from qppvm_tpu_torch.mpc.ddp_mpc import CentroidalMPC, CentroidalMPCConfig
     from qppvm_tpu_torch.runtime.robot_interface import standing_state
 
@@ -630,16 +662,18 @@ def test_flop_count_is_the_same_through_kernel_and_plain(device):
     rt = dict(rho_updates=0, warm_kinv_iters=4, cold_ns_iters=10,
               scale_iters=2, pinv_ns_iters=5)
     counts = {}
-    for backend in ("kernel", "torch"):
-        plugin = ForceAccPlugin(model, contact_links=contacts,
-                                waist_link="pelvis", iters=12,
-                                solver_opts=dict(rt, backend=backend))
-        refs, warm, _ = plugin.on_start(st)
-        st_b, refs_b, warm_b = expand_batch(st, refs, warm, 37)
+    plugin = ForceAccPlugin(model, contact_links=contacts,
+                            waist_link="pelvis", iters=12, solver_opts=rt)
+    refs, warm, _ = plugin.on_start(st)
+    st_b, refs_b, warm_b = expand_batch(st, refs, warm, 37)
+    for route in ("kernel", "plain"):
         telemetry.reset("level_qp.launch")
-        counts[backend] = bench_util.matmul_flops(plugin._step_impl, st_b,
-                                                  refs_b, warm_b)
+        with pytest.MonkeyPatch.context() as mp:
+            if route == "plain":
+                _plain_levels(mp)
+            counts[route] = bench_util.matmul_flops(plugin._step_impl, st_b,
+                                                    refs_b, warm_b)
         torch.cuda.synchronize()
         assert telemetry.counts()["level_qp.launch"] == (
-            2 if backend == "kernel" else 0)
-    assert counts["kernel"] == counts["torch"] > 0
+            2 if route == "kernel" else 0)
+    assert counts["kernel"] == counts["plain"] > 0

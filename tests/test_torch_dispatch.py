@@ -1,10 +1,11 @@
 """The port's solver dispatch: no JAX in the package, loud fallbacks.
 
 - importing every module of qppvm_tpu_torch loads no ``jax``;
-- with backend "kernel", a level in the level solver's profile goes to
-  ``level_qp.solve_level`` (its plain version on CPU tensors, the same
-  arithmetic as qp.solve) and a level outside it runs qp.solve and adds one
-  to ``cascade.fallback`` in ``telemetry``;
+- a level in the level solver's profile goes to ``level_qp.solve_level``
+  (its plain version on CPU tensors, the same arithmetic as qp.solve) and
+  a level outside it runs qp.solve and adds one to ``cascade.fallback`` in
+  ``telemetry``; no caller names the route: the cascade, ``ForceAccPlugin``
+  and the rollouts of a default ``RolloutConfig`` take the level solver;
 - a level whose rows are all equalities is routed to qp.solve (counted),
   and ``solve_level`` itself raises on it;
 - ``solve_level`` raises on a device that is neither CPU nor CUDA;
@@ -58,25 +59,76 @@ def _stack(B=3, n=8, n_eq=2, n_ineq=3, level_rows=(2, 3), seed=0):
                                has_box=False)
 
 
-def test_kernel_backend_routes_and_counts_fallbacks():
+def _spy_solve_level(monkeypatch):
+    """The config of every ``level_qp.solve_level`` call."""
+    calls, real = [], level_qp.solve_level
+
+    def spy(cfg, *args):
+        calls.append(cfg)
+        return real(cfg, *args)
+    monkeypatch.setattr(level_qp, "solve_level", spy)
+    return calls
+
+
+def test_kernel_backend_routes_and_counts_fallbacks(monkeypatch):
     stack = _stack()
     warm = hierarchy.warm_start_init(stack)
+    with monkeypatch.context() as mp:   # every level through qp.solve
+        mp.setattr(level_qp, "solve", qp.solve)
+        x_ref, warm_ref, _ = hierarchy.solve(stack, warm, **RT)
+    calls = _spy_solve_level(monkeypatch)
     telemetry.reset("cascade.fallback")
-    x_ref, warm_ref, _ = hierarchy.solve(stack, warm, backend="torch", **RT)
-    assert telemetry.counts()["cascade.fallback"] == 0
     # in profile: both levels go to the level solver, nothing counted, and
     # on CPU it is exactly qp.solve's arithmetic
-    x, warm_k, infos = hierarchy.solve(stack, warm, backend="kernel", **RT)
-    assert telemetry.counts()["cascade.fallback"] == 0
+    x, warm_k, infos = hierarchy.solve(stack, warm, **RT)
+    assert len(calls) == 2 and telemetry.counts()["cascade.fallback"] == 0
     assert torch.equal(x, x_ref)
     assert all(torch.equal(a.Kinv, b.Kinv) for a, b in zip(warm_k, warm_ref))
     # outside the profile (a polished solve; no warm state): one per level
-    hierarchy.solve(stack, warm, backend="kernel", **dict(RT, polish_rounds=2))
+    hierarchy.solve(stack, warm, **dict(RT, polish_rounds=2))
     assert telemetry.counts()["cascade.fallback"] == 2
-    hierarchy.solve(stack, None, backend="kernel", **RT)
-    assert telemetry.counts()["cascade.fallback"] == 4
-    with pytest.raises(ValueError):
-        hierarchy.solve(stack, warm, backend="pallas", **RT)
+    hierarchy.solve(stack, None, **RT)
+    assert telemetry.counts()["cascade.fallback"] == 4 and len(calls) == 2
+    # the rule is per level: level 1 leaves the profile, level 0 stays
+    hierarchy.solve(stack, warm, per_level_opts=[None, dict(rho_updates=1)],
+                    **RT)
+    assert telemetry.counts()["cascade.fallback"] == 5 and len(calls) == 3
+
+
+def test_default_callers_take_the_level_solver(monkeypatch):
+    """A ForceAccPlugin and a default RolloutConfig's rollout, built without
+    naming a route, send every level of their real-time profile through
+    ``level_qp.solve_level``; the tick is qp.solve's to the bit."""
+    from qppvm_tpu_torch.model import zoo
+    from qppvm_tpu_torch.mpc import rollout
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+    from qppvm_tpu_torch.runtime.rt_loop import FOOT_PATCH, RT_PROFILE
+
+    feet = ("l_sole", "r_sole")
+    model = zoo.humanoid(device="cpu")
+    plugin = ForceAccPlugin(model, contact_links=feet, waist_link="pelvis",
+                            iters=12, solver_opts=RT_PROFILE)
+    st = rollout.standing_state(model, feet, batch=2)
+    refs, warm, _ = plugin.on_start(st)
+    with monkeypatch.context() as mp:
+        mp.setattr(level_qp, "solve", qp.solve)
+        tau_ref, _, _ = plugin._step_impl(st, refs, warm)
+    calls = _spy_solve_level(monkeypatch)
+    telemetry.reset("cascade.fallback")
+    tau, _, _ = plugin._step_impl(st, refs, warm)
+    assert len(calls) == 2 and torch.equal(tau, tau_ref)
+    roll = rollout.make_rollout_fn(plugin, rollout.RolloutConfig(horizon=2),
+                                   rollout.default_cost,
+                                   contact_offsets={f: FOOT_PATCH
+                                                    for f in feet})
+    args = (st, refs, warm, torch.zeros(2, 2, 3),
+            {"push": torch.zeros(2, 2, 3)})
+    cost, _ = roll(*args)
+    assert len(calls) == 2 + 2 * 2
+    assert telemetry.counts()["cascade.fallback"] == 0
+    monkeypatch.setattr(level_qp, "solve", qp.solve)
+    assert torch.equal(cost, roll(*args)[0])
+    assert bool(torch.isfinite(cost).all())
 
 
 def test_all_equality_level_is_routed_and_rejected_by_the_kernel():
@@ -86,7 +138,7 @@ def test_all_equality_level_is_routed_and_rejected_by_the_kernel():
     stack = _stack(n_eq=3, n_ineq=0, level_rows=(2, 2))
     warm = hierarchy.warm_start_init(stack)
     telemetry.reset("cascade.fallback")
-    x, _, infos = hierarchy.solve(stack, warm, backend="kernel", **RT)
+    x, _, infos = hierarchy.solve(stack, warm, **RT)
     assert telemetry.counts()["cascade.fallback"] == 2
     eq_res = (stack.C @ x[..., None])[..., 0] - stack.lC
     assert float(eq_res.abs().max()) < 1e-4

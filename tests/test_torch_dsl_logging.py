@@ -269,7 +269,7 @@ def test_scan_with_stream_matches_host_dispatch(tmp_path):
     def tick(carry, _):
         st, anchors, w = carry
         tau, w, aux = plugin._step_impl(st, refs, w)
-        st, anchors = robot._step(st, anchors, tau, st.q, zk, zk)
+        st, anchors = robot.step(st, anchors, tau, st.q, zk, zk)
         return (st, anchors, w), {
             "tau_qp": tau[0], "prim_res": aux.prim_res[0],
             "fz": aux.wrenches[0, :, 2], "base_z": st.base_pos[0, 2]}

@@ -123,11 +123,17 @@ def test_config_checks(tmp_path):
                    "right_ee": "arm1_7", "extra_key_passes": 1},
         "solver": {"iters": 40, "opts": {"rho_updates": 0,
                                          "backend": "kernel"}}})
+    # the key "backend" is read only as "kernel", and dropped
+    assert cfg.solver.opts == {"rho_updates": 0}
     assert cfg.plugin.extra == {"extra_key_passes": 1}
     cfg.plugin.extra = {}
     plugin = config.build_plugin(cfg, config.build_model(cfg, device="cpu"))
     assert plugin.solver_opts["rho_updates"] == 0
-    assert plugin.solver_opts["backend"] == "kernel"
+    assert "backend" not in plugin.solver_opts
+    with pytest.raises(ValueError, match="solver.opts.backend"):
+        config.ScenarioConfig.from_dict(
+            {"robot": {"zoo": "arm7"},
+             "solver": {"opts": {"backend": "torch"}}})
     cfg.plugin.type = "bogus"
     with pytest.raises(ValueError, match="unknown plugin type"):
         config.build_plugin(cfg, plugin.model)
@@ -154,7 +160,6 @@ def test_build_mpc_on_cpu():
     model = config.build_model(cfg, device="cpu")
     mpc = config.build_mpc(cfg, config.build_plugin(cfg, model))
     assert mpc.init_plan().shape == (2, mpc.mppi.nu)
-    assert mpc.rcfg.qp_backend == "kernel"
     assert (mpc.mppi.push_std, mpc.mppi.mass_scale_std,
             mpc.mppi.mu_scale_range, mpc.rcfg.qp_iters) == (40.0, 0.08,
                                                             0.25, 12)

@@ -2,11 +2,11 @@
 qppvm_tpu: the slice as a whole.
 
 Both sides build ForceAccPlugin on the humanoid with bench.py's real-time
-solver profile. The JAX side runs ``backend="xla"``: the Pallas kernel in
-interpret mode at n = 44 would cost minutes to compile here, and its parity
-with the xla path is pinned by tests/test_pallas_qp.py. The port runs
-``backend="kernel"``, which on CPU tensors is the level kernel's plain
-version. JAX programs are jitted (one compilation each) and pinned to
+solver profile. The JAX side runs its default xla level solver: the
+Pallas kernel in interpret mode at n = 44 would cost minutes to compile
+here, and its parity with the xla path is pinned by
+tests/test_pallas_qp.py. The port's levels, in the level kernel's profile,
+run the level kernel's plain version on CPU tensors. JAX programs are jitted (one compilation each) and pinned to
 float32; tick inputs are numpy-seeded.
 
 Tolerances (float32 on both sides, sums in another order): stack data and
@@ -64,7 +64,7 @@ def _batched(tree):
 def jax_side():
     jm = jzoo.humanoid()
     plugin = JForceAcc(jm, contact_links=CONTACTS, waist_link="pelvis",
-                       iters=12, solver_opts=dict(PROFILE, backend="xla"))
+                       iters=12, solver_opts=dict(PROFILE))
     st = jax.jit(lambda: jrollout.standing_state(jm, CONTACTS))()
     polish = []
     orig_polish = jqp._polish
@@ -162,7 +162,7 @@ def jax_side():
 def torch_side():
     plugin = ForceAccPlugin(zoo.humanoid(device="cpu"), contact_links=CONTACTS,
                             waist_link="pelvis", iters=12,
-                            solver_opts=dict(PROFILE, backend="kernel"))
+                            solver_opts=dict(PROFILE))
     st = standing_state(plugin.model, CONTACTS)
     polish = []
     orig_polish = qp._polish
@@ -437,7 +437,7 @@ def _torque_case(robot, contacts, options, dtype, seed=0):
     tm = zoo.by_name(robot, dtype=dtype, device="cpu")
     plugin = ForceAccPlugin(tm, contact_links=contacts, iters=12,
                             dtype=dtype,
-                            solver_opts=dict(PROFILE, backend="kernel"),
+                            solver_opts=dict(PROFILE),
                             **options)
     st = _random_state(tm, contacts, dtype, seed)
     refs, warm, _ = plugin.on_start(st)

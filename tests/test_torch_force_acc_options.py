@@ -8,9 +8,9 @@ cones.
 Inputs are numpy-seeded and fed to both sides in float32 (the suite
 enables x64, so the JAX side is pinned). Single tasks and constraints run
 the JAX side eagerly, item by item; each stack or tick runs one jitted,
-vmapped JAX program. The JAX plugins run ``backend="xla"`` and the port's
-``backend="kernel"`` (on CPU tensors the level kernel's plain version), in
-bench.py's real-time solver profile.
+vmapped JAX program. The JAX plugins run their default xla level solver
+and the port's levels the level kernel's plain version (on CPU tensors),
+in bench.py's real-time solver profile.
 
 Tolerances are those of tests/test_torch_force_acc.py: rows, bounds and
 references to rtol 1e-4 with an absolute floor of 1e-4 of each array's
@@ -140,9 +140,9 @@ def centaur():
     acceleration limits, and the model data). The two programs compile
     side by side, on two threads."""
     jm = jzoo.centaur()
-    jp = JForceAcc(jm, iters=12, solver_opts=dict(PROFILE, backend="xla"),
+    jp = JForceAcc(jm, iters=12, solver_opts=dict(PROFILE),
                    **CENTAUR_CONES)
-    jp_jl = JForceAcc(jm, iters=12, solver_opts=dict(PROFILE, backend="xla"),
+    jp_jl = JForceAcc(jm, iters=12, solver_opts=dict(PROFILE),
                       use_joint_limits=True, **CENTAUR_CONES)
     st = jax.jit(lambda: jrollout.standing_state(jm, FEET))()
     arrs = _port_states({k: np.asarray(getattr(st, k))
@@ -184,7 +184,7 @@ def centaur():
 def port_centaur(centaur):
     tm = zoo.centaur(device="cpu")
     plugin = ForceAccPlugin(tm, iters=12,
-                            solver_opts=dict(PROFILE, backend="kernel"),
+                            solver_opts=dict(PROFILE),
                             **CENTAUR_CONES)
     ts = convert.robot_state(centaur["arrs"], device="cpu")
     return dict(tm=tm, plugin=plugin, ts=ts,
@@ -468,8 +468,7 @@ def test_quadruped_switchable_cones_position_feet_match_reference():
     robot, contacts, options = QUAD_SWITCH
     [(sd, aux)] = _option_cases(robot, contacts, [options], seed=1,
                                 gates=GATES, solver=dict(
-                                    iters=12, solver_opts=dict(
-                                        PROFILE, backend="kernel")))
+                                    iters=12, solver_opts=dict(PROFILE)))
     assert [tuple(lv.A.shape) for lv in sd.levels] == [(B, 6, 34),
                                                       (B, 40, 34)]
     assert tuple(sd.C.shape) == (B, 26, 34)
@@ -499,7 +498,7 @@ def test_on_start_seeds_contact_gates_and_lifecycle_hooks(centaur):
     kept out of the stack."""
     tm = zoo.quadruped(device="cpu")
     plugin = ForceAccPlugin(tm, iters=12, switchable_contacts=True,
-                            solver_opts=dict(PROFILE, backend="kernel"))
+                            solver_opts=dict(PROFILE))
     st = standing_state(tm, FEET, batch=B)
     refs, warm, waist = plugin.on_start(st)
     assert torch.equal(refs["contacts"]["active"], torch.ones(B, 4))

@@ -15,8 +15,8 @@ reference's two programs (the vmapped rollout and the plan step) compile
 once, side by side on two threads, in the module fixture. The reference
 runs its "xla" level solver (the Pallas kernel in
 interpret mode would take minutes to compile here; tests/test_pallas_qp.py
-pins the two together); the port runs "kernel", which on CPU tensors is
-the level kernel's plain version.
+pins the two together); the port's levels, in the level kernel's
+profile, run its plain version on CPU tensors.
 
 Tolerances: float32 on both sides, sums in another order, through 3 steps
 of contact dynamics each fed by a 2-level 12-iteration QP cascade: costs,
@@ -42,6 +42,7 @@ from qppvm_tpu.plugins.force_acc import ForceAccPlugin as JForceAcc
 from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import convert, zoo
 from qppvm_tpu_torch.mpc import rollout, sampling
+from qppvm_tpu_torch.opt import level_qp
 from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
 from qppvm_tpu_torch.runtime.rt_loop import FOOT_PATCH
 
@@ -51,9 +52,8 @@ PATCH = {c: FOOT_PATCH for c in CONTACTS}
 K, H = 2, 3
 
 
-def _cfg(backend):
-    return dict(horizon=H, qp_iters=12, qp_warm_kinv_iters=8,
-                qp_backend=backend)
+def _cfg():
+    return dict(horizon=H, qp_iters=12, qp_warm_kinv_iters=8)
 
 
 def _close(actual, desired, rtol=1e-3, floor=1e-3):
@@ -104,11 +104,11 @@ def sides():
     jplugin = JForceAcc(jzoo.humanoid(), contact_links=CONTACTS,
                         waist_link="pelvis", iters=20)
     jroll = jrollout.make_rollout_fn(
-        jplugin, jrollout.RolloutConfig(**_cfg("xla")),
+        jplugin, jrollout.RolloutConfig(**_cfg()),
         jrollout.default_cost, contact_offsets=PATCH)
     roll_fn = jax.jit(jax.vmap(lambda U, sc: jroll(st, refs, warm, U, sc)))
     jmpc = jsampling.SamplingMPC(jplugin, jsampling.MPPIConfig(**MPPI_KW),
-                                 jrollout.RolloutConfig(**_cfg("xla")))
+                                 jrollout.RolloutConfig(**_cfg()))
     controls, scen = _rollout_inputs()
     unit, U_nom = _mppi_inputs()
     step_args = (jax.random.PRNGKey(0), st, refs, warm, jnp.asarray(U_nom))
@@ -131,9 +131,11 @@ def test_rollout_matches_reference(sides):
     cost_ref, health_ref = sides["rollout_ref"]
 
     troll = rollout.make_rollout_fn(
-        sides["tplugin"], rollout.RolloutConfig(**_cfg("pallas")),
+        sides["tplugin"], rollout.RolloutConfig(**_cfg()),
         rollout.default_cost, contact_offsets=PATCH)
-    assert troll.solver_opts["backend"] == "kernel"
+    # every step's levels are in the level kernel's profile
+    assert level_qp.config_from_opts(troll.solver_opts, n_eq_head=0,
+                                     n_eq_tail=0, iters=12) is not None
     tst, trefs, twarm = sampling.expand_batch(sides["tst"], sides["trefs"],
                                               sides["twarm"], K)
     telemetry.reset("cascade.fallback")
@@ -154,7 +156,7 @@ def test_mppi_update_matches_reference_on_fixed_samples(sides):
     U_ref, info_ref = sides["mppi_ref"]
     m = sampling.MPPIConfig(**MPPI_KW)
     tmpc = sampling.SamplingMPC(sides["tplugin"], m,
-                                rollout.RolloutConfig(**_cfg("kernel")))
+                                rollout.RolloutConfig(**_cfg()))
     U = torch.tensor(U_nom)[None] + m.noise_std * torch.tensor(unit[0])
     U_new, info = tmpc.update(sides["tst"], sides["trefs"], sides["twarm"],
                               U, {"push": m.push_std * torch.tensor(unit[1])})

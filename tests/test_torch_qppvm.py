@@ -267,7 +267,7 @@ def _batched_home(home):
 
 
 def test_binv_is_the_ns_inverse(jax_side, torch_side):
-    """``Binv`` is ``mass_matrix_inverse(B, 20)``: bitwise the NS kernel's
+    """``Binv`` is ``ns_inverse.spd_inverse(B, 20)``: bitwise the NS kernel's
     plain version, and the reference's 18 + 2 NS iterations."""
     model = torch_side["model"]
     ts = _state(jax_side["states"])

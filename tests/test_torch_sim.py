@@ -227,19 +227,19 @@ def test_rollout_start_inverse_goes_through_the_ns_kernel(models, ns_calls):
 def test_mass_matrix_inverse_rule(dtype, n, takes):
     """The NS kernel takes float32 matrices up to its largest size (139
     here); on the card anything else runs the plain NS, counted."""
-    assert dynamics.ns_kernel_takes(dtype, n, 139) is takes
+    assert ns_inverse.takes(dtype, n, 139) is takes
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_mass_matrix_inverse_on_the_cpu(models, ns_calls, dtype):
-    """A CPU tensor of any dtype goes through ns_inverse.ns_inverse
-    (iters 24), bitwise spd_inverse_ns(B, 22, 2), and counts no plain
-    routing."""
+    """``ns_inverse.spd_inverse``: a CPU tensor of any dtype goes through
+    ns_inverse.ns_inverse (iters 24), bitwise spd_inverse_ns(B, 22, 2),
+    and counts no plain routing."""
     jm, tm = models
     ts = _tstate(_near_ground_states(jm, seed=1))
     K = (dynamics.mass_matrix(tm, ts) + 1e-9 * torch.eye(tm.nv)).to(dtype)
     telemetry.reset("model.plain_inverse")
-    X = dynamics.mass_matrix_inverse(K)
+    X = ns_inverse.spd_inverse(K)
     assert ns_calls == [24] and telemetry.counts()["model.plain_inverse"] == 0
     assert X.dtype == dtype
     assert torch.equal(X, linalg.spd_inverse_ns(K, iters=22, refine=2))
@@ -387,8 +387,7 @@ def test_closed_loop_first_ticks_match_reference(models):
     jm, tm = models
     ticks, substeps = 3, 2
     tplugin = ForceAccPlugin(tm, contact_links=CONTACTS, waist_link="pelvis",
-                             iters=12, solver_opts=dict(rt_loop.RT_PROFILE,
-                                                        backend="torch"))
+                             iters=12, solver_opts=dict(rt_loop.RT_PROFILE))
     trobot = ri.SimRobot(tm, state=ri.standing_state(tm, CONTACTS), dt=1e-3,
                          substeps=substeps, contact_links=CONTACTS,
                          contact_offsets=PATCH)

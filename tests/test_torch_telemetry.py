@@ -14,9 +14,9 @@ the CPU:
   level kernel's profile, the mass matrix's inverse in the model update)
   and its plant period;
 - counters: always counted, per unit while on, reset by name, no update
-  lost between threads; ``cascade.level`` and ``cascade.fallback`` on the
-  kernel backend count every level and every level outside the kernel's
-  profile.
+  lost between threads; ``cascade.level`` and ``cascade.fallback`` count
+  every level and every level outside the kernel's profile, which is every
+  level that does not reach ``level_qp.solve_level``.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import zoo
-from qppvm_tpu_torch.opt import hierarchy
+from qppvm_tpu_torch.opt import hierarchy, level_qp
 from qppvm_tpu_torch.plugins.qppvm import QPPVMPlugin
 from qppvm_tpu_torch.runtime import rt_loop
 from qppvm_tpu_torch.runtime.robot_interface import SimRobot
@@ -232,7 +232,7 @@ def test_threads_lose_no_count_and_nest_apart():
 @pytest.fixture(scope="module")
 def humanoid():
     torch.manual_seed(0)
-    return rt_loop.humanoid_loop("kernel", device="cpu")
+    return rt_loop.humanoid_loop(device="cpu")
 
 
 def assert_one_unit(recs, stages, substeps):
@@ -279,8 +279,7 @@ def test_forceacc_tick_and_plant_record_every_layer(humanoid):
 def test_qppvm_tick_and_plant_record_every_layer():
     model = zoo.dual_arm(device="cpu")
     plugin = QPPVMPlugin(model, iters=60, solver_opts=dict(
-        backend="kernel", rho_updates=0, warm_kinv_iters=12, scale_iters=5,
-        pinv_ns_iters=7))
+        rho_updates=0, warm_kinv_iters=12, scale_iters=5, pinv_ns_iters=7))
     robot = SimRobot(model, dt=1e-3, substeps=2)
     refs, warm, start = plugin.on_start(robot.state)
     refs = dict(refs, LEFT_ARM=plugin.make_refs(start, 1e-3))
@@ -311,15 +310,21 @@ def _stack():
 
 @pytest.mark.parametrize("case, levels, fallbacks", [
     ("in_profile", 2, 0), ("polished", 2, 2), ("cold", 2, 2)])
-def test_cascade_counters_on_the_kernel_backend(case, levels, fallbacks):
+def test_cascade_counters_on_the_kernel_backend(case, levels, fallbacks,
+                                                monkeypatch):
     stack = _stack()
     warm = None if case == "cold" else hierarchy.warm_start_init(stack)
     opts = dict(RT, polish_rounds=2) if case == "polished" else RT
-    hierarchy.solve(stack, warm, backend="kernel", **opts)
+    hierarchy.solve(stack, warm, **opts)
     counted = telemetry.counts()
     assert counted["cascade.level"] == levels
     assert counted["cascade.fallback"] == fallbacks
-    # the torch backend counts every level and no fallback
+    # the routing rule: a level not counted as a fallback is one the level
+    # solver took
+    taken, real = [], level_qp.solve_level
+    monkeypatch.setattr(level_qp, "solve_level",
+                        lambda *a: taken.append(1) or real(*a))
     telemetry.reset()
-    hierarchy.solve(stack, warm, backend="torch", **opts)
-    assert telemetry.counts() == {"cascade.level": levels}
+    hierarchy.solve(stack, warm, **opts)
+    assert len(taken) == levels - fallbacks
+    assert telemetry.counts()["cascade.fallback"] == fallbacks
