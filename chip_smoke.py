@@ -572,6 +572,8 @@ LEVEL, NS, FALLBACK = "level_qp.launch", "ns_inverse.launch", \
     "cascade.fallback"
 PLAIN, COPY = "model.plain_inverse", "logger.host_copy"
 SWEEP, PLAIN_SWEEP = "model_sweep.launch", "model.plain_sweep"
+# ticks replayed through the tick's CUDA graph, and its captures
+REPLAY, CAPTURE = "tick_graph.replay", "tick_graph.capture"
 # phase 19: (robot, B) of the benchmark's cells and of the MPPI rollout;
 # the bar of tests/test_torch_model_sweep.py, max |a - r| / max(max |r|, 1)
 # an item
@@ -604,6 +606,20 @@ def gate_sweeps(path, expected, plain=0) -> int:
              f"sweeps, expected {expected} and {plain}")
     SWEEPS[path] = got[0]
     return got[0]
+
+
+def gate_graph(path, ticks, captures=0) -> None:
+    """The tick's CUDA graph since ``zero(REPLAY, CAPTURE)`` over a window
+    of ``ticks`` plugin ticks: fails unless it made ``captures`` captures
+    (one where the window starts a layout: its first tick runs eagerly,
+    its second captures) and replayed every other tick."""
+    got = (counted(REPLAY), counted(CAPTURE))
+    if got != (ticks - captures, captures):
+        fail(f"{path}: {got[0]} tick-graph replays and {got[1]} captures "
+             f"over {ticks} ticks, expected {ticks - captures} and "
+             f"{captures}")
+    print(f"tick graph, {path}: {got[0]} replays of {ticks} ticks, "
+          f"{got[1]} captures")
 
 
 def fail(msg):
@@ -1029,12 +1045,13 @@ def phase_closed_loop(torch, dev, card, hierarchy, level_qp, nsi):
           f"{tick_ms - sim_ms:.3f} ms per tick")
 
     loop_k = rt_loop.humanoid_loop(device=dev)
-    loop_k.run(1)                           # warm-up, untimed
+    loop_k.run(2)          # warm-up, untimed: eager, then the graph captured
     torch.cuda.synchronize()
     zero(LEVEL)
     zero(FALLBACK)
     zero(NS)
     zero(SWEEP, PLAIN_SWEEP)
+    zero(REPLAY, CAPTURE)
     t0 = time.perf_counter()
     res_k = loop_k.run(KERNEL_LOOP_TICKS, record=LOOP_COMPARE)
     torch.cuda.synchronize()
@@ -1045,6 +1062,7 @@ def phase_closed_loop(torch, dev, card, hierarchy, level_qp, nsi):
         fail(f"kernel loop: {launches} launches and {fallbacks} fallbacks, "
              f"expected {2 * KERNEL_LOOP_TICKS} and 0")
     gate_sweeps("closed_loop_b1", KERNEL_LOOP_TICKS)
+    gate_graph("closed_loop_b1", KERNEL_LOOP_TICKS, 0)
     substeps = loop_k.robot.substeps
     if ns_launches != substeps * KERNEL_LOOP_TICKS:
         fail(f"kernel loop: {ns_launches} NS launches, expected "
@@ -1167,6 +1185,7 @@ def phase_centaur_tick(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     zero(FALLBACK)
     zero(NS)
     zero(SWEEP, PLAIN_SWEEP)
+    zero(REPLAY, CAPTURE)
     taus, prim_max = chain(torch, plugins["kernel"], states, refs_b, warm_b,
                            "centaur kernel", inside_cones)
     torch.cuda.synchronize()
@@ -1176,6 +1195,7 @@ def phase_centaur_tick(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         fail(f"centaur tick: {launches} launches and {fallbacks} fallbacks, "
              f"expected {2 * TICKS} and 0")
     gate_sweeps("centaur_tick_b1024", TICKS)
+    gate_graph("centaur_tick_b1024", TICKS, 1)
     taus_ref, _ = chain(torch, plugins["torch"], states, refs_b, warm_b,
                         "centaur torch", inside_cones)
     tau_err = compare_taus(torch, taus, taus_ref, "centaur")
@@ -1251,6 +1271,7 @@ def phase_quadruped_loop(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     zero(FALLBACK)
     zero(NS)
     zero(SWEEP, PLAIN_SWEEP)
+    zero(REPLAY, CAPTURE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st, n_fail, fz_sums, fz_last, taus = drive_quadruped(
@@ -1266,6 +1287,7 @@ def phase_quadruped_loop(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         fail(f"quadruped loop: {ns_launches} NS launches, expected "
              f"{QUAD_SUBSTEPS} per tick ({QUAD_SUBSTEPS * QUAD_TICKS})")
     gate_sweeps("quadruped_loop_b1", QUAD_TICKS)
+    gate_graph("quadruped_loop_b1", QUAD_TICKS, 1)
     z1 = float(st.base_pos[0, 2])
     fz_mean = float(torch.stack(fz_sums).mean())
     fz_min = float(fz_last.min())
@@ -1555,6 +1577,7 @@ def phase_capture(torch, dev, card, hierarchy, level_qp, nsi):
     zero(FALLBACK)
     zero(NS)
     zero(SWEEP, PLAIN_SWEEP)
+    zero(REPLAY, CAPTURE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fall_step, ups_step, foot_xy, rt_fails, ran = capture_run(
@@ -1563,6 +1586,7 @@ def phase_capture(torch, dev, card, hierarchy, level_qp, nsi):
     tick_ms = (time.perf_counter() - t0) / ran * 1e3
     loop_launches = (counted(LEVEL), counted(NS))
     gate_sweeps("capture_loop_b1", ran)
+    gate_graph("capture_loop_b1", ran, 0)
     step_len = float(torch.linalg.norm(foot_xy[-1] - foot_xy[0]))
     up_at = ups_step[fall_lean] if fall_lean < len(ups_step) else None
     print(f"capture loop: lean-only fell at tick {fall_lean}; the chosen "
@@ -1801,6 +1825,7 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     zero(PLAIN)
     zero(LEVEL)
     zero(SWEEP, PLAIN_SWEEP)
+    zero(REPLAY, CAPTURE)
     t0 = time.perf_counter()
     stats, tr = qppvm_loop(torch, plugin, robot, QPPVM_TICKS,
                            tmp.name + "/dual_arm", sinusoid)
@@ -1815,6 +1840,7 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
              f"0, 0")
     # one model update a tick and on_start's
     gate_sweeps("qppvm_dual_arm_loop_b1", QPPVM_TICKS + 1)
+    gate_graph("qppvm_dual_arm_loop_b1", QPPVM_TICKS, 1)
     print(f"QPPVM dual arm, default profile: {ns_launches} NS launches, 0 "
           f"plain inverses, 0 level launches")
     qppvm_sine_gates(torch, model, st, stats, tr, robot,
@@ -1830,6 +1856,7 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     zero(LEVEL)
     zero(FALLBACK)
     zero(SWEEP, PLAIN_SWEEP)
+    zero(REPLAY, CAPTURE)
     t0 = time.perf_counter()
     kstats, ktr = qppvm_loop(torch, kplugin, krobot, QPPVM_TICKS,
                              tmp.name + "/dual_arm_kernel", sinusoid)
@@ -1843,6 +1870,7 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
              f"{2 * QPPVM_TICKS}, 2 (on_start's) and "
              f"{(1 + krobot.substeps) * QPPVM_TICKS + 1}")
     gate_sweeps("qppvm_kernel_profile_loop_b1", QPPVM_TICKS + 1)
+    gate_graph("qppvm_kernel_profile_loop_b1", QPPVM_TICKS, 1)
     print(f"QPPVM dual arm, {QPPVM_BENCH_CONFIG.name}: {klevels} level "
           f"launches (2 a tick), 0 fallbacks in the ticks, {kns} NS "
           f"launches")
@@ -1873,10 +1901,12 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     def plain_inverse(K, iters=24):
         return linalg.spd_inverse_ns(K, iters=iters - 2, refine=2)
 
+    # a plugin of its own: ``plugin``'s tick graph replays the NS kernel
+    # it captured, which the patch does not reach
     with mock.patch.object(nsi, "spd_inverse", plain_inverse):
         zero(NS)
-        _, tr_p = qppvm_loop(torch, plugin, SimRobot(model, dt=1e-3,
-                                                     substeps=2),
+        _, tr_p = qppvm_loop(torch, QPPVMPlugin(model, iters=60),
+                             SimRobot(model, dt=1e-3, substeps=2),
                              QPPVM_COMPARE, tmp.name + "/plain", sinusoid)
     if counted(NS) != 0:
         fail(f"plain-NS QPPVM ticks made {counted(NS)} NS launches")
@@ -1903,6 +1933,7 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         zero(LEVEL)
         zero(FALLBACK)
         zero(SWEEP, PLAIN_SWEEP)
+        zero(REPLAY, CAPTURE)
         for k, s_k in enumerate(states):
             r = dict(refs, LEFT_ARM=pl.make_refs(start, k * 1e-3))
             tau, warm, aux = pl.control_loop(s_k, r, warm)
@@ -1918,6 +1949,7 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
                      f"{counted(FALLBACK)} fallbacks; expected "
                      f"{2 * QPPVM_COMPARE} and 0")
             gate_sweeps("qppvm_kernel_profile_chain_b1", QPPVM_COMPARE)
+            gate_graph("qppvm_kernel_profile_chain_b1", QPPVM_COMPARE, 1)
     chain_err = compare_taus(torch, chain_taus["kernel"], chain_taus["torch"],
                              "QPPVM level-kernel chain")
     print(f"QPPVM rho_updates 0, {QPPVM_COMPARE} chained ticks: level "
@@ -1931,6 +1963,7 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     arm_robot = SimRobot(arm, dt=1e-3, substeps=2)
     zero(NS)
     zero(SWEEP, PLAIN_SWEEP)
+    zero(REPLAY, CAPTURE)
     arm_stats, arm_tr = qppvm_loop(torch, arm_plugin, arm_robot, ARM7_TICKS,
                                    tmp.name + "/arm7")
     arm_ns = counted(NS)
@@ -1951,6 +1984,7 @@ def phase_qppvm(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     if arm_ns != (1 + arm_robot.substeps) * ARM7_TICKS + 1:
         fail(f"QPPVM arm7 loop: {arm_ns} NS launches")
     gate_sweeps("qppvm_arm7_loop_b1", ARM7_TICKS + 1)
+    gate_graph("qppvm_arm7_loop_b1", ARM7_TICKS, 1)
     tmp.cleanup()
     return ({"qppvm_dual_arm_loop_b1": levels,
              "qppvm_kernel_profile_chain_b1": chain_launches,
@@ -2050,6 +2084,7 @@ def phase_walk(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     zero(FALLBACK)
     zero(NS)
     zero(SWEEP, PLAIN_SWEEP)
+    zero(REPLAY, CAPTURE)
     t0 = time.perf_counter()
     aux, n_fail, err_max, taus = drive_walk(torch, w, ticks,
                                             record=LOOP_COMPARE,
@@ -2082,6 +2117,7 @@ def phase_walk(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         fail(f"walk stride: {ns_launches} NS launches, expected "
              f"{WALK_SUBSTEPS * ticks}")
     gate_sweeps("walk_stride_b1", ticks)
+    gate_graph("walk_stride_b1", ticks, 1)
     if n_fail:
         fail(f"walk stride: {n_fail} solver failures")
     if not swing_dx >= WALK_SWING_SHARE * WALK_GAIT["stride"][0]:
@@ -2139,6 +2175,7 @@ def phase_async(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     zero(FALLBACK)
     zero(NS)
     zero(SWEEP, PLAIN_SWEEP)
+    zero(REPLAY, CAPTURE)
     ages, tick_ms, in_flight, rt_fails = [], [], [], 0
     t0 = time.perf_counter()
     for i in range(ASYNC_TICKS):
@@ -2209,6 +2246,7 @@ def phase_async(torch, dev, card, hierarchy, level_qp, nsi, zoo):
     # one model update a tick and one a step of each plan's rollout
     gate_sweeps("async_loop_b1_and_plans",
                 ASYNC_TICKS + ASYNC_MPPI["horizon"] * planner.n_launch)
+    gate_graph("async_loop_b1", ASYNC_TICKS, 1)
     return launches, ns_launches
 
 
@@ -2236,6 +2274,7 @@ def phase_entry(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         zero(LEVEL)
         zero(FALLBACK)
         zero(SWEEP, PLAIN_SWEEP)
+        zero(REPLAY, CAPTURE)
         t0 = time.perf_counter()
         out = run.main(["--config", path, *args])
         torch.cuda.synchronize()
@@ -2271,6 +2310,9 @@ def phase_entry(torch, dev, card, hierarchy, level_qp, nsi, zoo):
                  else int(round(float(RUN_SECONDS) / cfg.sim.dt)))
         on_start = (0, 1) if cfg.plugin.type == "force_acc" else (1, 0)
         gate_sweeps(f"run_{cname}", steps + on_start[0], plain=on_start[1])
+        # a plan's run makes no tick
+        gate_graph(f"run_{cname}", 0 if cfg.mpc.enabled else steps,
+                   int(not cfg.mpc.enabled))
         print(f"[{card}] run {cname} {' '.join(args)}: {json.dumps(out)} "
               f"({run_s:.1f} s with set-up; {ns_by[cname]} NS launches, "
               f"{level_by[cname]} level launches)")
@@ -2281,7 +2323,8 @@ def phase_entry(torch, dev, card, hierarchy, level_qp, nsi, zoo):
                         dt=1e-3, substeps=2, contact_links=FEET)
     z0 = float(robot.state.base_pos[0, 2])
     refs, warm0, _ = plugin.on_start(robot.state)
-    plugin.control_loop(robot.state, refs, warm0)
+    for _ in range(2):          # eager, then the tick's graph captured
+        plugin.control_loop(robot.state, refs, warm0)
     torch.cuda.synchronize()
     ring = native.NativeTraceRing()
     box = {"warm": warm0, "fails": 0, "ticks": 0}
@@ -2298,11 +2341,13 @@ def phase_entry(torch, dev, card, hierarchy, level_qp, nsi, zoo):
 
     zero(NS)
     zero(SWEEP, PLAIN_SWEEP)
+    zero(REPLAY, CAPTURE)
     ex = native.NativeExecutor(period_s=EXEC_PERIOD_S)
     done = ex.run(tick, EXEC_TICKS)
     stats = ex.stats()
     exec_ns = counted(NS)
     gate_sweeps("native_executor_b1", EXEC_TICKS)
+    gate_graph("native_executor_b1", EXEC_TICKS, 0)
     n_pop = 0
     while ring.pop() is not None:
         n_pop += 1
@@ -2397,6 +2442,7 @@ def ddp_loop(torch, dev, zoo, b, ticks, force=False, record=0):
     zero(LEVEL, FALLBACK, NS)
     zero(PLAIN)
     zero(SWEEP, PLAIN_SWEEP)
+    zero(REPLAY, CAPTURE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(ticks):
@@ -2584,6 +2630,7 @@ def phase_ddp(torch, dev, card, hierarchy, level_qp, nsi, zoo):
                  f"fallbacks, {want_ns} NS launches, 0 plain inverses")
         # one model update a tick and one a plan
         gate_sweeps(label, DDP_TICKS + loop["plans"])
+        gate_graph(label, DDP_TICKS, 1)
         levels_by[label], ns_by[label] = launches, ns
         plain = ddp_loop(torch, dev, zoo, "torch", LOOP_COMPARE, force=force,
                          record=LOOP_COMPARE)
@@ -2670,6 +2717,7 @@ def phase_loaders(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         zero(NS)
         zero(LEVEL)
         zero(SWEEP, PLAIN_SWEEP)
+        zero(REPLAY, CAPTURE)
         t0 = time.perf_counter()
         out = run.main(["--config", str(cfg_path), "--seconds", RUN_SECONDS])
         torch.cuda.synchronize()
@@ -2685,6 +2733,7 @@ def phase_loaders(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         fail(f"loaders run: {counted(NS)} NS launches over {ticks} ticks")
     # one model update a tick and the QPPVM on_start's
     gate_sweeps("run_config1_urdf", ticks + 1)
+    gate_graph("run_config1_urdf", ticks, 1)
     print(f"[{card}] run config1_arm7 on the URDF arm --seconds "
           f"{RUN_SECONDS}: {json.dumps(out)} ({run_s:.1f} s with set-up; "
           f"{counted(NS)} NS launches, {counted(NS) / ticks:.2f} a tick, "
@@ -2894,6 +2943,7 @@ def phase_stream(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         zero(COPY)
         zero(NS)
         zero(SWEEP, PLAIN_SWEEP)
+        zero(REPLAY, CAPTURE)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         carry_s = logger.scan_with_stream(tick, carry0, STREAM_TICKS,
@@ -2902,6 +2952,7 @@ def phase_stream(torch, dev, card, hierarchy, level_qp, nsi, zoo):
         ms_s = (time.perf_counter() - t0) / STREAM_TICKS * 1e3
         copies, ns_launches = counted(COPY), counted(NS)
         gate_sweeps("stream_loop_b1", STREAM_TICKS)
+        gate_graph("stream_loop_b1", STREAM_TICKS, 1)
         host = logger.TraceBuffer(f"{tmp}/host", capacity=STREAM_TICKS)
         c = carry0
         t0 = time.perf_counter()
@@ -3156,6 +3207,7 @@ def phase_main_path(torch, dev, card, hierarchy, level_qp, zoo):
     zero(LEVEL)
     zero(FALLBACK)
     zero(SWEEP, PLAIN_SWEEP)
+    zero(REPLAY, CAPTURE)
     taus, prim_max = chain(torch, plugins["kernel"], states, refs_b, warm_b,
                            "kernel")
     torch.cuda.synchronize()
@@ -3167,6 +3219,7 @@ def phase_main_path(torch, dev, card, hierarchy, level_qp, zoo):
     if launches != 2 * TICKS or fallbacks != 0:
         fail(f"expected {2 * TICKS} launches and 0 fallbacks")
     gate_sweeps("batched_tick", TICKS)
+    gate_graph("batched_tick", TICKS, 1)
     taus_ref, _ = chain(torch, plugins["torch"], states, refs_b, warm_b,
                         "torch")
     tau_err = compare_taus(torch, taus, taus_ref, "main path")

@@ -215,8 +215,6 @@ def _root_motion(model: RobotModel, data: ModelData, R, dtype):
 
 def _transfer(Rl, pl, Jl, vl, bl, E_off, p_off):
     """Rigid point transfer of link quantities to an attached frame."""
-    E_off = torch.as_tensor(E_off, dtype=Rl.dtype, device=Rl.device)
-    p_off = torch.as_tensor(p_off, dtype=pl.dtype, device=pl.device)
     R = Rl @ E_off
     p = pl + Rl @ p_off
     r = Rl @ p_off
@@ -233,7 +231,7 @@ def frame_data(model: RobotModel, data: ModelData, name: str):
     """(R, p, J, vel, bias) of a link origin or an extra named frame, each
     with a leading batch dimension."""
     kin = data.kin
-    spec = model.frame_spec(name)
+    spec = kinematics.frame_spec(model, name, kin.base_R)
     if spec is None:
         li = model.link_index(name)
         if li >= 0:

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from qppvm_tpu_torch import device as device_lib
 from qppvm_tpu_torch.model import spatial
 from qppvm_tpu_torch.model.robot import REVOLUTE, RobotModel, RobotState
 
@@ -63,6 +64,21 @@ def _static(model: RobotModel, name: str, make):
     if key not in _STATIC_CACHE:
         _STATIC_CACHE[key] = make()
     return _STATIC_CACHE[key]
+
+
+def frame_spec(model: RobotModel, name: str, like: torch.Tensor):
+    """``model.frame_spec(name)`` with its offsets as tensors of ``like``'s
+    dtype and device, made once (a constant of the model), so the tick
+    copies nothing from the host; None for a link."""
+    def make():
+        spec = model.frame_spec(name)
+        if spec is None:
+            return None
+        li, E_off, p_off = spec
+        kw = dict(dtype=like.dtype, device=like.device)
+        return li, torch.as_tensor(E_off, **kw), torch.as_tensor(p_off, **kw)
+    return device_lib.constant(model, ("frame", name, like.dtype, like.device),
+                               make)
 
 
 def device_levels(model: RobotModel):
@@ -169,13 +185,11 @@ def link_jacobian(model: RobotModel, kin: KinData, link: str):
 
 def link_pose(model: RobotModel, kin: KinData, link: str):
     """(R (B, 3, 3), p (B, 3)) world pose of a named link or extra frame."""
-    spec = model.frame_spec(link)
+    spec = frame_spec(model, link, kin.base_R)
     if spec is not None:
         li, E_off, p_off = spec
         Rp, pp = ((kin.base_R, kin.base_p) if li < 0
                   else (kin.R[:, li], kin.p[:, li]))
-        E_off = torch.as_tensor(E_off, dtype=Rp.dtype, device=Rp.device)
-        p_off = torch.as_tensor(p_off, dtype=pp.dtype, device=pp.device)
         return Rp @ E_off, pp + Rp @ p_off
     li = model.link_index(link)
     if li < 0:

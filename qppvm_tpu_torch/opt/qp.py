@@ -230,7 +230,7 @@ def solve(problem: QPProblem, state: Optional[QPState] = None, *,
         z = e * state.z
         y = state.y / torch.clamp(e, min=1e-30)
 
-    rho_base = _rho_vec(l, u, torch.tensor(rho, dtype=dtype, device=device))
+    rho_base = _rho_vec(l, u, torch.full((), rho, dtype=dtype, device=device))
     n_chunks = max(1, rho_updates + 1)
     chunk = max(1, iters // n_chunks)
     # the carried rho may adapt down across ticks but never carries an

@@ -18,15 +18,18 @@ warm state for the batch it is given.
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from qppvm_tpu_torch import device as device_lib
 from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import dynamics
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
 from qppvm_tpu_torch.opt import hierarchy
 from qppvm_tpu_torch.opt.variables import Optvar
+from qppvm_tpu_torch.runtime import tick_graph
 from qppvm_tpu_torch.tasks.acceleration import Cartesian, Postural
 from qppvm_tpu_torch.tasks.base import AssembleCtx, Indices, SubTask
 from qppvm_tpu_torch.tasks.force import CoM, ForceReg
@@ -48,7 +51,7 @@ class ForceAccAux:
     prim_res: torch.Tensor           # (B,)
 
 
-class ForceAccPlugin:
+class ForceAccPlugin(device_lib.Settings):
     # RT-loop failure gate on the relative primal residual
     RT_FAIL_TOL = 5e-3
 
@@ -106,12 +109,11 @@ class ForceAccPlugin:
         self.iters = iters
         self.contact_links = tuple(contact_links)
         self.waist_link = waist_link
-        self.solver_opts = dict(refine=2, rho_updates=1, polish_rounds=0,
-                                assume_warm_kinv=True, polish_ns_iters=16,
-                                warm_kinv_iters=8, rho_adapt_tol=1e-3,
-                                rho_scale_min=0.1,
-                                eps_abs_scale=self.eps_abs_scale)
-        self.solver_opts.update(solver_opts or {})
+        opts = dict(refine=2, rho_updates=1, polish_rounds=0,
+                    assume_warm_kinv=True, polish_ns_iters=16,
+                    warm_kinv_iters=8, rho_adapt_tol=1e-3, rho_scale_min=0.1,
+                    eps_abs_scale=self.eps_abs_scale)
+        opts.update(solver_opts or {})
 
         nv = model.nv
         self.wrench_dim = int(wrench_dim)
@@ -126,7 +128,9 @@ class ForceAccPlugin:
                                    device=self.device)
         if force_reg_weight > 0.0:
             self.reg_diag[nv:] = wrench_reg_scale
-        self.solver_opts["reg_diag"] = self.reg_diag
+        opts["reg_diag"] = self.reg_diag
+        # read-only: a change assigns the options anew (device.Settings)
+        self.solver_opts = types.MappingProxyType(opts)
 
         foot_rows = None if foot_tasks_6d else (0, 1, 2)
         self.feet_tasks = [Cartesian(cl + "_cartesian", cl, self.qddot,
@@ -186,6 +190,7 @@ class ForceAccPlugin:
         for c in wrench_constraints:
             stack = stack << c
         self.stack = stack
+        self._graph = tick_graph.TickGraph(self._tick_body, settings=self)
 
     def _wrench_constraints(self, gates, use_friction_cones, mu, fz_min,
                             moment_box, cop_box):
@@ -311,21 +316,24 @@ class ForceAccPlugin:
     def _step_impl(self, state: RobotState, refs, warm):
         """One batched RT tick: (tau, warm_new, aux); tau is zeroed for the
         items whose solve failed. The span ``tick`` opens a unit of the
-        program's telemetry."""
+        program's telemetry. A tick whose inputs runtime/tick_graph.py's
+        rule takes (float32 on one CUDA device, no gradient) replays a CUDA
+        graph of ``_tick_body``; any other runs it eagerly."""
         with telemetry.span("tick"):
-            tau, warm_new, infos, (data, x, qddot, wr, tau_c_full) = \
-                self.step_core(state, refs, warm)
-            with telemetry.span("aux"):
-                failed = hierarchy.solve_failed(infos, tol=self.RT_FAIL_TOL)
-                tau = torch.where(failed[:, None], torch.zeros_like(tau), tau)
-                ctx = AssembleCtx(model=self.model, data=data, state=state,
-                                  refs=refs, nx=self.opt.size,
-                                  dtype=self.dtype)
-                aux = ForceAccAux(
-                    tau=tau, tau_c=tau_c_full[:, 6:], qddot=qddot,
-                    wrenches=wr,
-                    dyn_feas_residual=self.dyn_feas.check_constraint(ctx, x),
-                    solver_failed=failed,
-                    prim_res=torch.amax(
-                        torch.stack([i.prim_res for i in infos]), dim=0))
+            return self._graph(state, refs, warm)
+
+    def _tick_body(self, state: RobotState, refs, warm):
+        tau, warm_new, infos, (data, x, qddot, wr, tau_c_full) = \
+            self.step_core(state, refs, warm)
+        with telemetry.span("aux"):
+            failed = hierarchy.solve_failed(infos, tol=self.RT_FAIL_TOL)
+            tau = torch.where(failed[:, None], torch.zeros_like(tau), tau)
+            ctx = AssembleCtx(model=self.model, data=data, state=state,
+                              refs=refs, nx=self.opt.size, dtype=self.dtype)
+            aux = ForceAccAux(
+                tau=tau, tau_c=tau_c_full[:, 6:], qddot=qddot, wrenches=wr,
+                dyn_feas_residual=self.dyn_feas.check_constraint(ctx, x),
+                solver_failed=failed,
+                prim_res=torch.amax(
+                    torch.stack([i.prim_res for i in infos]), dim=0))
         return tau, warm_new, aux

@@ -17,15 +17,17 @@ Every tick input carries a leading batch dimension B.
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Any, Dict, Optional
 
 import torch
 
+from qppvm_tpu_torch import device as device_lib
 from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model import dynamics
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
 from qppvm_tpu_torch.opt import hierarchy
-from qppvm_tpu_torch.runtime import trajectory
+from qppvm_tpu_torch.runtime import tick_graph, trajectory
 from qppvm_tpu_torch.tasks.base import AssembleCtx, Indices
 from qppvm_tpu_torch.tasks.torque import (CartesianImpedanceCtrl,
                                           JointImpedanceCtrl, TorqueLimits)
@@ -44,7 +46,7 @@ class QPPVMAux:
     ee_right_err: torch.Tensor   # (B, 6) the same, right EE
 
 
-class QPPVMPlugin:
+class QPPVMPlugin(device_lib.Settings):
     # On a failed solve the reference zeroes tau_qp, still adds h and
     # commands the result (gravity compensation); runtime/plugin.py's
     # ControlLoop then commands on every tick.
@@ -81,11 +83,12 @@ class QPPVMPlugin:
         # sqrt(prim / dual), and a transient bound activation (the
         # sinusoid's peak acceleration) then spikes the primal residual past
         # the failure gate for a tick.
-        self.solver_opts = dict(refine=2, rho_updates=1, polish_rounds=0,
-                                assume_warm_kinv=True, polish_ns_iters=16,
-                                warm_kinv_iters=12,
-                                rho_adapt_tol=1e-3, rho_scale_min=0.1)
-        self.solver_opts.update(solver_opts or {})
+        opts = dict(refine=2, rho_updates=1, polish_rounds=0,
+                    assume_warm_kinv=True, polish_ns_iters=16,
+                    warm_kinv_iters=12, rho_adapt_tol=1e-3, rho_scale_min=0.1)
+        opts.update(solver_opts or {})
+        # read-only: a change assigns the options anew (device.Settings)
+        self.solver_opts = types.MappingProxyType(opts)
 
         nj = model.nj
         kw = dict(dtype=dtype, device=self.device)
@@ -113,6 +116,7 @@ class QPPVMPlugin:
         self.torque_limits = TorqueLimits()
         self.stack = ((self.ee_right + self.ee_left)
                       / self.joint_task) << self.torque_limits
+        self._graph = tick_graph.TickGraph(self._tick_body, settings=self)
 
     def drive_pd_profile(self, robot_k, robot_d,
                          keep_joints=("j_arm1_5", "j_arm1_6", "j_arm1_7",
@@ -170,6 +174,12 @@ class QPPVMPlugin:
 
     # --- the tick -------------------------------------------------------
     def _step_impl(self, state: RobotState, refs, warm):
+        """One tick: a CUDA graph of ``_tick_body`` replayed where
+        runtime/tick_graph.py's rule takes the inputs (float32 on one CUDA
+        device, no gradient), else ``_tick_body`` run eagerly."""
+        return self._graph(state, refs, warm)
+
+    def _tick_body(self, state: RobotState, refs, warm):
         model = self.model
         data = dynamics.compute_model_data(model, state, need_binv=True)
         stack_data = self.stack.build(model, data, state, refs,

@@ -8,6 +8,7 @@ from typing import Any, Dict, List, Sequence
 
 import torch
 
+from qppvm_tpu_torch import device as device_lib
 from qppvm_tpu_torch import telemetry
 from qppvm_tpu_torch.model.dynamics import ModelData
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
@@ -15,8 +16,9 @@ from qppvm_tpu_torch.opt import hierarchy
 from qppvm_tpu_torch.tasks.base import BOX, ROWS, AssembleCtx, Constraint, Task
 
 
-class AutoStack:
-    """Ordered priority levels + attached constraints."""
+class AutoStack(device_lib.Settings):
+    """Ordered priority levels + attached constraints: settings, so a level
+    or a constraint added is a change of the stack (``device.changed``)."""
 
     def __init__(self, level0: Sequence[Task] | Task):
         if isinstance(level0, Task):
@@ -26,6 +28,7 @@ class AutoStack:
 
     def __truediv__(self, other) -> "AutoStack":
         """Append a lower-priority level."""
+        device_lib.changed(self)
         if isinstance(other, AutoStack):
             self.constraints.extend(other.constraints)
             self.levels.extend(other.levels)
@@ -35,6 +38,7 @@ class AutoStack:
 
     def __lshift__(self, constraint: Constraint) -> "AutoStack":
         """Attach a constraint."""
+        device_lib.changed(self)
         self.constraints.append(constraint)
         return self
 

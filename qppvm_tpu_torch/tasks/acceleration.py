@@ -9,14 +9,14 @@ import torch
 
 from qppvm_tpu_torch.model import kinematics, spatial
 from qppvm_tpu_torch.opt.variables import AffineExpr
-from qppvm_tpu_torch.tasks.base import AssembleCtx, Task
+from qppvm_tpu_torch.tasks.base import (AssembleCtx, Task, ref_tensor,
+                                        take_rows)
 
 
 def ref_scalar(ref, key, default, ctx: AssembleCtx):
     """A per-item scalar reference (B,), or the static default."""
-    v = ref.get(key, default)
-    return torch.as_tensor(v, dtype=ctx.dtype,
-                           device=ctx.state.q.device).expand(ctx.batch)
+    return ref_tensor(ref.get(key, default), ctx.dtype,
+                      ctx.state.q.device).expand(ctx.batch)
 
 
 class Cartesian(Task):
@@ -34,8 +34,8 @@ class Cartesian(Task):
         self.qddot = qddot
         self.kp = kp
         self.kd = 2.0 * float(np.sqrt(kp)) if kd is None else kd
-        # all six rows without a gather when no selection is asked for
-        self.rows = slice(None) if indices is None else list(indices)
+        # all six rows when no selection is asked for
+        self.rows = None if indices is None else list(indices)
 
     def _frame(self, model, data):
         from qppvm_tpu_torch.model.dynamics import (frame_data,
@@ -65,8 +65,11 @@ class Cartesian(Task):
         kp = ref_scalar(ref, "kp", self.kp, ctx)[:, None]
         kd = ref_scalar(ref, "kd", self.kd, ctx)[:, None]
         xdd_des = ref["a"] + kp * e + kd * (ref["v"] - v)
-        A = (J @ self.qddot.M)[:, self.rows]
-        b = (xdd_des - bias - J @ self.qddot.c)[:, self.rows]
+        A = J @ self.qddot.M
+        b = xdd_des - bias - J @ self.qddot.c
+        if self.rows is not None:
+            A = take_rows(self, self.rows, A)
+            b = take_rows(self, self.rows, b)
         w = self.weight * ref_scalar(ref, "w", 1.0, ctx)
         return w[:, None, None] * A, w[:, None] * b
 
@@ -91,7 +94,6 @@ class Postural(Task):
         off = 6 if ctx.model.floating else 0
         A = self.qddot.M[off:]
         b = qdd_des - self.qddot.c[off:]
-        w = self.weight * torch.as_tensor(ref.get("w", 1.0), dtype=ctx.dtype,
-                                          device=b.device)
+        w = self.weight * ref_tensor(ref.get("w", 1.0), ctx.dtype, b.device)
         wv = w.expand_as(b) if w.dim() == 2 else w.reshape(-1, 1).expand_as(b)
         return wv[..., None] * A, wv * b

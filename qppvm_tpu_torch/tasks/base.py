@@ -3,8 +3,9 @@
 A task emits ``(A (B, k, nx), b (B, k))`` with ``min ||A x - b||^2``
 semantics; a constraint emits a box on x or rows ``l <= C x <= u``. ``+``
 aggregates tasks, ``/`` stacks priorities and ``<<`` attaches constraints,
-building an ``AutoStack``. Task objects hold only static configuration;
-references live in the batched ``refs`` dict passed to every tick.
+building an ``AutoStack``. Task objects hold only static configuration,
+their settings (``device.Settings``); references live in the batched
+``refs`` dict passed to every tick.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from qppvm_tpu_torch import device as device_lib
 from qppvm_tpu_torch.model.dynamics import ModelData
 from qppvm_tpu_torch.model.robot import RobotModel, RobotState
 
@@ -33,7 +35,7 @@ class AssembleCtx:
         return self.state.q.shape[0]
 
 
-class Task:
+class Task(device_lib.Settings):
     """Base task. Subclasses set ``name`` and implement ``assemble``."""
 
     name: str = "task"
@@ -79,6 +81,28 @@ class AggregatedTask(Task):
         return [bt for t in self.tasks for bt in t.base_tasks()]
 
 
+def take_rows(owner, indices: Sequence[int], t: torch.Tensor):
+    """``t[:, indices]`` with no copy from the host: a slice where the rows
+    are one ascending run, else an index tensor made once per device (a
+    constant of ``owner``, whose setting ``indices`` is)."""
+    def selection():
+        rows = list(indices)
+        lo = rows[0] if rows else 0
+        if rows and rows == list(range(lo, lo + len(rows))):
+            return slice(lo, lo + len(rows))
+        return torch.tensor(rows, dtype=torch.int64, device=t.device)
+    return t[:, device_lib.constant(owner, ("rows", t.device), selection)]
+
+
+def ref_tensor(v, dtype, device) -> torch.Tensor:
+    """A reference value as a tensor on ``device``: a tensor as it is (cast
+    where it differs), a number filled on the device, anything else copied
+    from the host."""
+    if isinstance(v, (int, float)):
+        return torch.full((), v, dtype=dtype, device=device)
+    return torch.as_tensor(v, dtype=dtype, device=device)
+
+
 class SubTask(Task):
     """Rows ``indices`` of another task (OpenSoT's SubTask)."""
 
@@ -90,7 +114,8 @@ class SubTask(Task):
 
     def assemble(self, ctx: AssembleCtx):
         A, b = self.task.assemble(ctx)
-        return A[:, self.indices], b[:, self.indices]
+        return (take_rows(self, self.indices, A),
+                take_rows(self, self.indices, b))
 
     def ref_init(self, model, data, state):
         return self.task.ref_init(model, data, state)
@@ -112,7 +137,7 @@ BOX = "box"
 ROWS = "rows"
 
 
-class Constraint:
+class Constraint(device_lib.Settings):
     """Base constraint; ``assemble`` returns (kind, C (B, k, nx) or None,
     lb (B, k), ub (B, k)). ``is_equality``: rows are always equalities
     (l == u), ordered first and eliminated by the solver."""

@@ -6,6 +6,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from qppvm_tpu_torch import device as device_lib
 from qppvm_tpu_torch.model import kinematics, spatial
 from qppvm_tpu_torch.opt.variables import AffineExpr
 from qppvm_tpu_torch.tasks.acceleration import ref_scalar
@@ -46,6 +47,23 @@ class ForceReg(Task):
         self.weight = max(w_tan, w_norm)
         self.gates_key = gates_key
         self.up_index = up_index
+
+    def targets(self, dtype, device):
+        """(each wrench's unit vector along ``up_index``, the rows'
+        weights), made once per dtype and device (a constant of the task,
+        made anew after a setting changes)."""
+        def make():
+            ups, row_w = [], []
+            for wr in self.wrenches:
+                up = torch.zeros((wr.size,), dtype=dtype, device=device)
+                up[self.up_index] = 1.0
+                ups.append(up)
+                rw = torch.full((wr.size,), self.w_tan, dtype=dtype,
+                                device=device)
+                rw[self.up_index] = self.w_norm
+                row_w.append(rw)
+            return ups, torch.cat(row_w)
+        return device_lib.constant(self, ("targets", dtype, device), make)
 
     def ref_init(self, model, data, state):
         n = sum(w.size for w in self.wrenches)
@@ -88,16 +106,10 @@ class ForceReg(Task):
         w_sh = self._static_share(ctx, g) if self.share_mode == "static" else g
         share = W[:, None] * w_sh / torch.clamp(w_sh.sum(-1, keepdim=True),
                                                 min=1e-6)
-        f_des, row_w = [], []
-        for i, wr in enumerate(self.wrenches):
-            up = torch.zeros((wr.size,), dtype=ctx.dtype, device=dev)
-            up[self.up_index] = 1.0
-            f_des.append(share[:, i:i + 1] * up)
-            rw = torch.full((wr.size,), self.w_tan, dtype=ctx.dtype, device=dev)
-            rw[self.up_index] = self.w_norm
-            row_w.append(rw)
-        f_des = torch.cat(f_des, dim=-1) + ref["f"]
-        row_w = torch.cat(row_w) * ref_scalar(ref, "w", 1.0, ctx)[:, None]
+        ups, row_w = self.targets(ctx.dtype, dev)
+        f_des = torch.cat([share[:, i:i + 1] * up for i, up in enumerate(ups)],
+                          dim=-1) + ref["f"]
+        row_w = row_w * ref_scalar(ref, "w", 1.0, ctx)[:, None]
         M = torch.cat([w.M for w in self.wrenches], dim=0)
         c = torch.cat([w.c for w in self.wrenches], dim=0)
         return row_w[..., None] * M, row_w * (f_des - c)

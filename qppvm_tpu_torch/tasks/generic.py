@@ -15,6 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from qppvm_tpu_torch import device as device_lib
 from qppvm_tpu_torch.opt.variables import AffineExpr
 from qppvm_tpu_torch.tasks.base import ROWS, AssembleCtx, Constraint
 
@@ -149,6 +150,15 @@ class FrictionCone(Constraint):
         self.f_max = f_max
         self.gate = gate
 
+    def bounds(self, dtype, device):
+        """(lb, ub) of the five rows, made once per dtype and device (a
+        constant of the cone, made anew after ``f_min`` or ``f_max``
+        changes)."""
+        kw = dict(dtype=dtype, device=device)
+        return device_lib.constant(self, ("bounds", dtype, device), lambda: (
+            torch.tensor([-_BIG] * 4 + [self.f_min], **kw),
+            torch.tensor([0.0] * 4 + [self.f_max], **kw)))
+
     def assemble(self, ctx: AssembleCtx):
         mu = self.mu / np.sqrt(2.0)
         (fx, fy, fz), (cx, cy, cz) = self.force.M, self.force.c
@@ -156,9 +166,7 @@ class FrictionCone(Constraint):
                             -fy - mu * fz, fz])
         offs = torch.stack([cx - mu * cz, -cx - mu * cz, cy - mu * cz,
                             -cy - mu * cz, cz]).to(ctx.dtype)
-        kw = dict(dtype=ctx.dtype, device=offs.device)
-        lb = torch.tensor([-_BIG] * 4 + [self.f_min], **kw)
-        ub = torch.tensor([0.0] * 4 + [self.f_max], **kw)
+        lb, ub = self.bounds(ctx.dtype, offs.device)
         return _one_sided(ctx, rows, offs, lb, ub, self.gate)
 
 

@@ -20,15 +20,27 @@ from typing import Optional, Sequence
 
 import torch
 
+from qppvm_tpu_torch import device as device_lib
 from qppvm_tpu_torch.model import spatial
 from qppvm_tpu_torch.opt import linalg
 from qppvm_tpu_torch.tasks.acceleration import ref_scalar
-from qppvm_tpu_torch.tasks.base import BOX, AssembleCtx, Constraint, Task
+from qppvm_tpu_torch.tasks.base import (BOX, AssembleCtx, Constraint, Task,
+                                        ref_tensor, take_rows)
 
 
-def _on(t, ctx: AssembleCtx):
-    """A task's static gain tensor on the tick's device and dtype."""
-    return torch.as_tensor(t).to(device=ctx.state.q.device, dtype=ctx.dtype)
+def _gain(task, name: str, ctx: AssembleCtx):
+    """The gain setting ``name`` of ``task`` on the tick's device and dtype:
+    a tensor already there as it is, anything else converted once (a
+    constant of the task, made anew after the tensor changes in place), so
+    the tick copies nothing from the host."""
+    t = getattr(task, name)
+    device, dtype = ctx.state.q.device, ctx.dtype
+    if isinstance(t, torch.Tensor) and t.device == device and t.dtype == dtype:
+        return t
+    return device_lib.constant(
+        task, (name, dtype, device),
+        lambda: torch.as_tensor(t).to(device=device, dtype=dtype),
+        source=t if isinstance(t, torch.Tensor) else None)
 
 
 class CartesianImpedanceCtrl(Task):
@@ -74,15 +86,15 @@ class CartesianImpedanceCtrl(Task):
         ref = ctx.refs[self.name]
         R, p, _, v, _ = self._frame(ctx.model, ctx.data)
         e = spatial.pose_error(ref["R"], ref["p"], R, p)
-        F_spring = e @ _on(self.Kc, ctx).T
-        F_damp = (ref["v"] - v) @ _on(self.Dc, ctx).T
+        F_spring = e @ _gain(self, "Kc", ctx).T
+        F_damp = (ref["v"] - v) @ _gain(self, "Dc", ctx).T
         return F_spring, F_damp
 
     def assemble(self, ctx: AssembleCtx):
         J = self._frame(ctx.model, ctx.data)[2]
         if ctx.model.floating:
             J = J[..., 6:]                           # actuated columns only
-        Js = J[:, self.indices]                      # (B, k, nj)
+        Js = take_rows(self, self.indices, J)        # (B, k, nj)
         JW = Js @ ctx.data.Binv if self.use_inertia_matrix else Js
         k = len(self.indices)
         G = JW @ Js.transpose(-1, -2) + self.reg * torch.eye(
@@ -91,7 +103,7 @@ class CartesianImpedanceCtrl(Task):
         # reference's; the NS kernel serves the mass matrix's n
         A = linalg.spd_inverse(G) @ JW               # (B, k, nj) = Jbar^T
         F_spring, F_damp = self.spring_damper_force(ctx)
-        F = (F_spring + F_damp)[:, self.indices]
+        F = take_rows(self, self.indices, F_spring + F_damp)
         w = self.weight * ref_scalar(ctx.refs[self.name], "w", 1.0, ctx)
         return w[:, None, None] * A, w[:, None] * F
 
@@ -112,8 +124,8 @@ class JointImpedanceCtrl(Task):
 
     def assemble(self, ctx: AssembleCtx):
         nj = ctx.model.nj
-        K = 5.0 if self.K is None else _on(self.K, ctx)
-        D = 2.0 if self.D is None else _on(self.D, ctx)
+        K = 5.0 if self.K is None else _gain(self, "K", ctx)
+        D = 2.0 if self.D is None else _gain(self, "D", ctx)
         ref = ctx.refs[self.name]
         acc_des = K * (ref["q"] - ctx.state.q) - D * ctx.state.qd   # (B, nj)
         if self.use_inertia_matrix:
@@ -121,8 +133,7 @@ class JointImpedanceCtrl(Task):
             b = (B @ acc_des[..., None])[..., 0]
         else:
             b = acc_des
-        w = self.weight * torch.as_tensor(ref.get("w", 1.0), dtype=ctx.dtype,
-                                          device=b.device)
+        w = self.weight * ref_tensor(ref.get("w", 1.0), ctx.dtype, b.device)
         wv = w.expand_as(b) if w.dim() == 2 else w.reshape(-1, 1).expand_as(b)
         A = torch.eye(nj, dtype=ctx.dtype, device=b.device)
         return wv[..., None] * A, wv * b
@@ -139,8 +150,8 @@ class TorqueLimits(Constraint):
 
     def assemble(self, ctx: AssembleCtx):
         tmax = (ctx.model.tau_max.to(ctx.dtype) if self.tau_max is None
-                else _on(self.tau_max, ctx))
-        tmin = -tmax if self.tau_min is None else _on(self.tau_min, ctx)
+                else _gain(self, "tau_max", ctx))
+        tmin = -tmax if self.tau_min is None else _gain(self, "tau_min", ctx)
         h = ctx.data.h[:, 6:] if ctx.model.floating else ctx.data.h
         return BOX, None, tmin - h, tmax - h
 
@@ -163,7 +174,7 @@ class JointLimits(Constraint):
 
     def assemble(self, ctx: AssembleCtx):
         m, st = ctx.model, ctx.state
-        k, d = _on(self.k, ctx), _on(self.d, ctx)
+        k, d = _gain(self, "k", ctx), _gain(self, "d", ctx)
         qmax = m.q_max.to(ctx.dtype) - self.margin
         qmin = m.q_min.to(ctx.dtype) + self.margin
         ub = k * (qmax - st.q) - d * st.qd

@@ -23,7 +23,11 @@ belongs to that tick), and a nested span takes its parent's.
 ``count(name, k)`` always adds ``k`` to the process's total of ``name``
 (``counts()``; ``reset(name)`` sets it back to 0). While the tracer is on
 it also adds ``k`` to the count of the current unit (``counts(unit)``),
-for the first ``CAPACITY`` units that count.
+for the first ``CAPACITY`` units that count. Under ``held()`` a thread's
+counts go to the counter that ``held`` yields instead, and nowhere else:
+a CUDA graph's capture holds back what its body counts, and each replay
+adds it again (``runtime/tick_graph.py``), so a count reads the launches
+that ran.
 
 The tracer runs no tensor operation, records no CUDA event and reads
 nothing from the card: it puts no work on the device, so it costs no
@@ -31,6 +35,9 @@ launch and may run inside a CUDA graph capture.
 
 The program's spans (PERF.md, section 3): ``tick`` (root, a control tick:
 ``ForceAccPlugin._step_impl`` or ``QPPVMPlugin.control_loop``) >
+``tick.graph`` (a tick through its CUDA graph: the inputs' copy in, the
+capture where there is one, the replay and the outputs' copy out; the
+layers below then run only while a graph is captured) >
 ``model_update`` (> ``model_update.sweep`` where the model-sweep kernel
 runs, else ``model_update.fk``, ``.nonlinear`` and ``.bias``; then
 ``.mass_matrix``, ``.jacobians``, ``.velocities``, ``.com``, ``.binv``),
@@ -41,7 +48,8 @@ tau_qp + h),
 ``plan`` (root, an MPPI update) > ``rollout.step``. Its counters: ``level_qp.launch``,
 ``ns_inverse.launch``, ``model_sweep.launch``, ``cascade.level``,
 ``cascade.fallback``, ``model.plain_inverse``, ``model.plain_sweep``,
-``logger.host_copy``.
+``logger.host_copy``, ``tick_graph.capture`` (a tick's CUDA graph
+captured) and ``tick_graph.replay`` (a tick replayed through one).
 """
 from __future__ import annotations
 
@@ -141,9 +149,25 @@ def span(name: str):
     return _NULL
 
 
+@contextlib.contextmanager
+def held():
+    """Hold back this thread's counts for the duration: each goes to the
+    ``collections.Counter`` yielded, not to the totals or to a unit."""
+    outer = getattr(_thread, "held", None)
+    _thread.held = collections.Counter()
+    try:
+        yield _thread.held
+    finally:
+        _thread.held = outer
+
+
 def count(name: str, k: int = 1) -> None:
     """Add ``k`` to counter ``name``, and while the tracer is on to the
-    current unit's count of it."""
+    current unit's count of it; under ``held()`` to its counter alone."""
+    hold = getattr(_thread, "held", None)
+    if hold is not None:
+        hold[name] += k
+        return
     with _lock:
         _totals[name] = _totals.get(name, 0) + k
     if _on or _profiling():

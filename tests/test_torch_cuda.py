@@ -61,6 +61,15 @@ humanoid's n 6, the quadruped's n 12), the iLQR's Q_uu routing (float32
 to the kernel, float64 to the plain NS, counted) on tests/test_ilqr.py's
 LQR problem, and one plan of each robot on the card against the same plan
 on the CPU.
+
+The tick as one CUDA graph (runtime/tick_graph.py): 20 chained ticks of
+the humanoid at B 1, of the centaur with friction cones at B 64 and of the
+QPPVM dual arm at B 1, captured and replayed, equal the same chain run
+eagerly, bitwise, with every tick's outputs kept to the end; a replay
+counts the launches the eager tick counts; a new refs layout captures once
+more; a setting changed between ticks (new gains, a gain changed in
+place on the card or on the host, a task's weight, a cone's bound) reaches
+the replayed chain as it reaches the eager one.
 """
 import pytest
 import torch
@@ -677,3 +686,231 @@ def test_flop_count_is_the_same_through_kernel_and_plain(device):
         assert telemetry.counts()["level_qp.launch"] == (
             2 if route == "kernel" else 0)
     assert counts["kernel"] == counts["plain"] > 0
+
+
+# --- the tick as one CUDA graph (runtime/tick_graph.py) --------------------
+
+GRAPH_TICKS = 20
+GRAPH_COUNTS = ("level_qp.launch", "model_sweep.launch", "ns_inverse.launch",
+                "cascade.level", "cascade.fallback", "model.plain_sweep",
+                "model.plain_inverse")
+
+
+def _graph_case(device, case):
+    """(plugin, the chain's inputs: [(state, refs)] of GRAPH_TICKS ticks,
+    the warm state): the humanoid's RT tick at B 1, the centaur's with
+    friction cones at B 64, the QPPVM dual arm's at B 1 on its sinusoid."""
+    from qppvm_tpu_torch.model import zoo
+    from qppvm_tpu_torch.mpc.rollout import standing_state
+    from qppvm_tpu_torch.mpc.sampling import expand_batch
+    from qppvm_tpu_torch.plugins.force_acc import ForceAccPlugin
+    from qppvm_tpu_torch.plugins.qppvm import QPPVMPlugin
+    from qppvm_tpu_torch.runtime.rt_loop import RT_PROFILE
+
+    g = torch.Generator(device=device).manual_seed(3)
+    if case == "qppvm_b1":
+        model = zoo.dual_arm(device=device)
+        plugin = QPPVMPlugin(model, iters=60,
+                             solver_opts=dict(rho_updates=0))
+        st = model.home_state()
+        refs, warm, start = plugin.on_start(st)
+        ticks = [(type(st)(q=st.q + 0.01 * torch.randn(
+            st.q.shape, generator=g, device=device), qd=st.qd,
+            base_rot=st.base_rot, base_pos=st.base_pos,
+            base_vel=st.base_vel),
+            dict(refs, LEFT_ARM=plugin.make_refs(start, 1e-3 * k)))
+            for k in range(GRAPH_TICKS)]
+        return plugin, ticks, warm
+    if case == "humanoid_b1":
+        model, B, contacts = zoo.humanoid(device=device), 1, ("l_sole",
+                                                               "r_sole")
+        plugin = ForceAccPlugin(model, contact_links=contacts,
+                                waist_link="pelvis", iters=12,
+                                solver_opts=dict(RT_PROFILE))
+    else:
+        model, B = zoo.centaur(device=device), 64
+        plugin = ForceAccPlugin(model, iters=12, use_friction_cones=True,
+                                solver_opts=dict(RT_PROFILE))
+        contacts = plugin.contact_links
+    st = standing_state(model, contacts)
+    refs, warm, _ = plugin.on_start(st)
+    st, refs, warm = expand_batch(st, refs, warm, B)
+    ticks = [(type(st)(q=st.q + 0.01 * torch.randn(
+        st.q.shape, generator=g, device=device), qd=st.qd,
+        base_rot=st.base_rot, base_pos=st.base_pos, base_vel=st.base_vel),
+        refs) for _ in range(GRAPH_TICKS)]
+    return plugin, ticks, warm
+
+
+def _tensors(tree):
+    from qppvm_tpu_torch.runtime import tick_graph
+    out = []
+    tick_graph._flatten(tree, out)
+    return out
+
+
+GRAPH_CASES = ["humanoid_b1", "centaur_cones_b64", "qppvm_b1"]
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_graph_chain_equals_eager_chain(device, case):
+    """GRAPH_TICKS chained ticks through ``_step_impl`` (the first eager,
+    the second captured, the rest replayed) equal the same chain through
+    ``_tick_body`` run eagerly, bitwise: tau, the warm carry and aux. Each
+    tick's outputs are kept to the end, so none was overwritten by a
+    later replay."""
+    plugin, ticks, warm0 = _graph_case(device, case)
+    eager, warm = [], warm0
+    for st, refs in ticks:
+        out = plugin._tick_body(st, refs, warm)
+        eager.append(out)
+        warm = out[1]
+    telemetry.reset("tick_graph.capture", "tick_graph.replay")
+    graphed, warm = [], warm0
+    for st, refs in ticks:
+        out = plugin._step_impl(st, refs, warm)
+        graphed.append(out)
+        warm = out[1]
+    torch.cuda.synchronize()
+    counted = telemetry.counts()
+    assert counted["tick_graph.capture"] == 1
+    assert counted["tick_graph.replay"] == GRAPH_TICKS - 1
+    for k, (a, r) in enumerate(zip(graphed, eager)):
+        ta, tr = _tensors(a), _tensors(r)
+        assert len(ta) == len(tr)
+        for i, (x, y) in enumerate(zip(ta, tr)):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            assert torch.equal(x, y), (case, k, i, float(
+                (x.double() - y.double()).abs().max()))
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_graph_replay_counts_what_the_eager_tick_counts(device, case):
+    """A replay adds the level, sweep and NS launches (and the levels and
+    plain routes) that the eager tick counts, once each."""
+    plugin, ticks, warm = _graph_case(device, case)
+    (st, refs) = ticks[0]
+    for _ in range(2):                  # eager, then captured and replayed
+        plugin._step_impl(st, refs, warm)
+    telemetry.reset(*GRAPH_COUNTS)
+    plugin._tick_body(st, refs, warm)
+    eager = {n: telemetry.counts()[n] for n in GRAPH_COUNTS}
+    telemetry.reset(*GRAPH_COUNTS, "tick_graph.replay", "tick_graph.capture")
+    plugin._step_impl(st, refs, warm)
+    torch.cuda.synchronize()
+    replayed = {n: telemetry.counts()[n] for n in GRAPH_COUNTS}
+    assert replayed == eager and eager["level_qp.launch"] == 2
+    assert eager["model_sweep.launch"] == 1
+    assert telemetry.counts()["tick_graph.replay"] == 1
+    assert telemetry.counts()["tick_graph.capture"] == 0
+
+
+def test_graph_outputs_survive_the_next_replay(device):
+    """Tick k's outputs hold their values after tick k + 1 replays."""
+    plugin, ticks, warm = _graph_case(device, "humanoid_b1")
+    outs = []
+    for st, refs in ticks[:4]:
+        out = plugin._step_impl(st, refs, warm)
+        outs.append((out, [t.clone() for t in _tensors(out)]))
+        warm = out[1]
+    torch.cuda.synchronize()
+    for out, copies in outs:
+        for t, c in zip(_tensors(out), copies):
+            assert torch.equal(t, c)
+
+
+def test_graph_new_refs_layout_captures_once_more(device):
+    """A refs layout the graph has not seen ticks eagerly once, then
+    captures one more graph; the old layout still replays its own."""
+    plugin, ticks, warm = _graph_case(device, "humanoid_b1")
+    st, refs = ticks[0]
+    wider = dict(refs, extra={"v": torch.zeros(1, 3, device=device)})
+    for _ in range(2):
+        plugin._step_impl(st, refs, warm)
+    telemetry.reset("tick_graph.capture", "tick_graph.replay")
+    for _ in range(3):
+        plugin._step_impl(st, wider, warm)
+    plugin._step_impl(st, refs, warm)
+    counted = telemetry.counts()
+    assert counted["tick_graph.capture"] == 1
+    assert counted["tick_graph.replay"] == 3
+
+
+def _setting_change(plugin, change, device, first_out):
+    """(set_a, set_b) of a setting of ``plugin``: the chain starts under
+    set_a and changes to set_b halfway."""
+    from qppvm_tpu_torch.tasks.generic import FrictionCone
+
+    if change.startswith("qppvm"):
+        tasks = (plugin.ee_left, plugin.ee_right)
+        Kc, Dc = plugin.ee_left.Kc.clone(), plugin.ee_left.Dc.clone()
+        if change == "qppvm_new_gains":
+            return (lambda: [t.set_stiffness_damping(Kc, Dc) for t in tasks],
+                    lambda: [t.set_stiffness_damping(2.0 * Kc, 3.0 * Dc)
+                             for t in tasks])
+        if change == "qppvm_gain_in_place":       # read where it lies
+            live = plugin.ee_left.Kc
+            return lambda: live.copy_(Kc), lambda: live.mul_(2.0)
+        host = Kc.to("cpu", torch.float64)        # converted once, watched
+        for t in tasks:
+            t.set_stiffness_damping(host, Dc)
+        return lambda: host.copy_(Kc), lambda: host.mul_(2.0)
+    if change == "humanoid_task_weight":
+        return (lambda: setattr(plugin.postural, "weight", 1.0),
+                lambda: setattr(plugin.postural, "weight", 4.0))
+    cones = [c for c in plugin.stack.constraints
+             if isinstance(c, FrictionCone)]
+    # below the feet that carry more than their share, above the sum
+    f_max = 1.05 * float(first_out[2].wrenches[..., 2].mean())
+    return (lambda: [setattr(c, "f_max", 1e4) for c in cones],
+            lambda: [setattr(c, "f_max", f_max) for c in cones])
+
+
+# change -> (its case, captures and replays of the graphed chain)
+SETTING_CHANGES = {
+    "qppvm_new_gains": ("qppvm_b1", 2, GRAPH_TICKS - 2),
+    "qppvm_gain_in_place": ("qppvm_b1", 1, GRAPH_TICKS - 1),
+    "qppvm_host_gain_in_place": ("qppvm_b1", 2, GRAPH_TICKS - 2),
+    "humanoid_task_weight": ("humanoid_b1", 2, GRAPH_TICKS - 2),
+    "centaur_cone_f_max": ("centaur_cones_b64", 2, GRAPH_TICKS - 2),
+}
+
+
+@pytest.mark.parametrize("change", list(SETTING_CHANGES))
+def test_graph_follows_a_changed_setting(device, change):
+    """GRAPH_TICKS chained ticks whose setting changes after half of them:
+    through ``_step_impl`` they equal the eager chain through
+    ``_tick_body`` bitwise, and differ from the chain with the setting
+    unchanged. An assigned setting, or a host gain changed in place, drops
+    the graph (one eager tick, one more capture); a gain on the card
+    changed in place reaches the replay where it lies."""
+    case, captures, replays = SETTING_CHANGES[change]
+    plugin, ticks, warm0 = _graph_case(device, case)
+    set_a, set_b = _setting_change(
+        plugin, change, device, plugin._tick_body(*ticks[0], warm0))
+    half = GRAPH_TICKS // 2
+
+    def chain(step, switch):
+        set_a()
+        outs, warm = [], warm0
+        for k, (st, refs) in enumerate(ticks):
+            if switch and k == half:
+                set_b()
+            out = step(st, refs, warm)
+            outs.append(out)
+            warm = out[1]
+        return outs
+
+    unchanged = chain(plugin._tick_body, False)
+    eager = chain(plugin._tick_body, True)
+    telemetry.reset("tick_graph.capture", "tick_graph.replay")
+    graphed = chain(plugin._step_impl, True)
+    torch.cuda.synchronize()
+    counted = telemetry.counts()
+    assert (counted["tick_graph.capture"], counted["tick_graph.replay"]) \
+        == (captures, replays)
+    assert not torch.equal(eager[-1][0], unchanged[-1][0])
+    for k, (a, r) in enumerate(zip(graphed, eager)):
+        for i, (x, y) in enumerate(zip(_tensors(a), _tensors(r))):
+            assert torch.equal(x, y), (change, k, i, float(
+                (x.double() - y.double()).abs().max()))
